@@ -1,0 +1,37 @@
+"""The port's device rule: CUDA unless the caller asks for another device;
+and its precision: fp32 throughout, TF32 off for cuDNN and cuBLAS."""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """`None` means "cuda".  A CUDA device without CUDA raises: the port
+    never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "tpu_rvc_torch: CUDA is not available; pass device='cpu' to run "
+            "the plain PyTorch path on the CPU")
+    return dev
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Run cuDNN convolutions and cuBLAS products in full fp32 (PyTorch
+    lets cuDNN use TF32 by default), restoring the caller's flags after.
+    The entry points (`Pipeline.pipeline`/`vc_chunk`, `Synthesizer.infer`,
+    `Hubert.forward`) wear it as a decorator, so every conversion has the
+    fp32 precision the JAX reference is held to."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -1,0 +1,63 @@
+"""Praat-style autocorrelation pitch (port of tpu_rvc/f0/pm.py:31-87;
+Boersma 1993, reference rvc/f0/pm.py wraps parselmouth).
+
+Per frame: subtract the mean, Hann window, normalised autocorrelation by
+rFFT divided by the window's own autocorrelation, parabolic-interpolated
+peaks in the [1/f0_max, 1/f0_min] lag range with Praat's octave cost, and
+a voicing gate on peak strength, frame amplitude and range.  Unvoiced
+frames are 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def _pm_f0(wav: torch.Tensor, sr: int, hop: int, win: int, f0_min: float,
+           f0_max: float, voicing_threshold: float = 0.6) -> torch.Tensor:
+    """wav: (T,) -> f0 (n_frames,) float32, frame i over [i*hop, i*hop+win)."""
+    dev = wav.device
+    frames = wav.unfold(0, win, hop)                         # (F, win)
+    frames = frames - frames.mean(dim=1, keepdim=True)
+    n = np.arange(win)
+    window = torch.as_tensor(0.5 - 0.5 * np.cos(2 * np.pi * n / (win - 1)),
+                             dtype=torch.float32, device=dev)
+    xw = frames * window
+    nfft = int(2 ** math.ceil(math.log2(2 * win)))
+    spec = torch.fft.rfft(xw, n=nfft, dim=1)
+    ac = torch.fft.irfft(spec * spec.conj(), n=nfft, dim=1)[:, :win]
+    r_x = ac / torch.clamp(ac[:, :1], min=1e-12)
+    wspec = torch.fft.rfft(window, n=nfft)
+    wac = torch.fft.irfft(wspec * wspec.conj(), n=nfft)[:win]
+    r_w = wac / torch.clamp(wac[0], min=1e-12)
+    r = r_x / torch.clamp(r_w, min=1e-3)[None, :]
+
+    lag_min = max(int(sr / f0_max), 2)
+    lag_max = min(int(sr / f0_min), win - 2)
+    lags = torch.arange(lag_min, lag_max + 1, device=dev)
+    rl = r[:, lag_min:lag_max + 1]
+    rm = r[:, lag_min - 1:lag_max]
+    rp = r[:, lag_min + 1:lag_max + 2]
+    is_peak = (rl >= rm) & (rl >= rp)
+    # Praat octave cost: longer lags pay log2(lag * f0_min / sr) * 0.01
+    lag_penalty = 0.01 * torch.log2(lags.to(torch.float32) * (f0_min / sr))
+    strength = torch.where(is_peak, rl - lag_penalty[None, :],
+                           torch.full_like(rl, -math.inf))
+    best = torch.argmax(strength, dim=1, keepdim=True)
+    y0, y1, y2 = (rm.gather(1, best)[:, 0], rl.gather(1, best)[:, 0],
+                  rp.gather(1, best)[:, 0])
+    denom = y0 - 2 * y1 + y2
+    delta = torch.where(denom.abs() > 1e-9,
+                        0.5 * (y0 - y2) / torch.where(denom == 0,
+                                                      torch.ones_like(denom),
+                                                      denom),
+                        torch.zeros_like(denom)).clamp(-0.5, 0.5)
+    f0 = sr / (lag_min + best[:, 0] + delta)
+    frame_amp = frames.abs().amax(dim=1)
+    global_amp = torch.clamp(wav.abs().max(), min=1e-9)
+    voiced = ((y1 > voicing_threshold) & (frame_amp > 0.03 * global_amp)
+              & (f0 >= f0_min) & (f0 <= f0_max))
+    return torch.where(voiced, f0, torch.zeros_like(f0)).to(torch.float32)

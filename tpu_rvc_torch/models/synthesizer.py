@@ -1,0 +1,135 @@
+"""The VITS synthesizer, inference only (port of
+tpu_rvc/models/synthesizer.py:125-220; reference rvc/layers/synthesizers.py).
+
+`infer` keeps the JAX layouts: phone (B, T, encoder_dim), pitch (B, T)
+int, pitchf (B, T) Hz, sid (B,) -> audio (B, T * hop, 1).  Module names
+follow the reference (`enc_p`, `flow`, `dec`, `emb_g`); the training-only
+posterior encoder (enc_q) is not part of this port yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from tpu_rvc_torch.core.config import HParams
+from tpu_rvc_torch.core.device import fp32_math, resolve_device
+from tpu_rvc_torch.nn.encoders import TextEncoder
+from tpu_rvc_torch.nn.flows import ResidualCouplingBlock
+from tpu_rvc_torch.nn.generators import Generator, NSFGenerator
+from tpu_rvc_torch.utils.timing import span
+
+FLOW_PREROLL = 24  # flow pre-roll frames ahead of a streamed tail
+
+
+class Synthesizer(nn.Module):
+    def __init__(self, spec_channels: int, segment_size: int,
+                 inter_channels: int, hidden_channels: int,
+                 filter_channels: int, n_heads: int, n_layers: int,
+                 kernel_size: int, p_dropout: float, resblock: str,
+                 resblock_kernel_sizes: Tuple[int, ...],
+                 resblock_dilation_sizes: Tuple[Tuple[int, ...], ...],
+                 upsample_rates: Tuple[int, ...],
+                 upsample_initial_channel: int,
+                 upsample_kernel_sizes: Tuple[int, ...], spk_embed_dim: int,
+                 gin_channels: int, sr: int, encoder_dim: int,
+                 use_f0: bool):
+        super().__init__()
+        self.sr = sr
+        self.use_f0 = use_f0
+        self.spk_embed_dim = spk_embed_dim
+        self.upsample_rates = tuple(upsample_rates)
+        self.enc_p = TextEncoder(encoder_dim, inter_channels, hidden_channels,
+                                 filter_channels, n_heads, n_layers,
+                                 kernel_size, f0=use_f0)
+        dec = dict(initial_channel=inter_channels, resblock=resblock,
+                   resblock_kernel_sizes=resblock_kernel_sizes,
+                   resblock_dilation_sizes=resblock_dilation_sizes,
+                   upsample_rates=upsample_rates,
+                   upsample_initial_channel=upsample_initial_channel,
+                   upsample_kernel_sizes=upsample_kernel_sizes,
+                   gin_channels=gin_channels)
+        self.dec = NSFGenerator(sr=sr, **dec) if use_f0 else Generator(**dec)
+        self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5,
+                                          1, 3, gin_channels=gin_channels)
+        self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
+
+    @property
+    def hop(self) -> int:
+        return math.prod(self.upsample_rates)
+
+    @torch.no_grad()
+    @fp32_math()
+    def infer(self, phone, phone_lengths, sid, pitch=None, pitchf=None,
+              skip_head: Optional[int] = None,
+              return_length: Optional[int] = None,
+              return_length2: Optional[int] = None,
+              noise_scale: float = 0.66666, deterministic: bool = False,
+              noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None):
+        """Inference (reference synthesizers.py:160).  deterministic=True
+        zeroes every random term (prior noise, sine noise); `noise`
+        supplies the prior eps (B, T, C) from outside; `generator` draws
+        them otherwise."""
+        g = self.emb_g(sid.long())[:, :, None]               # (B, gin, 1)
+        streamed = skip_head is not None and return_length is not None
+        head = int(skip_head) if streamed else 0
+        flow_head = max(head - FLOW_PREROLL, 0) if streamed else None
+        with span("enc_p", phone.device):
+            m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths,
+                                             skip_head=flow_head)
+            if noise is not None:
+                eps = noise
+            elif deterministic:
+                eps = torch.zeros_like(m_p)
+            else:
+                eps = torch.randn(m_p.shape, generator=generator,
+                                  device=m_p.device, dtype=m_p.dtype)
+            z_p = (m_p + torch.exp(logs_p) * eps * noise_scale) * x_mask
+        with span("flow", phone.device):
+            mask_cf = x_mask.transpose(1, 2)                 # (B, 1, T)
+            z = self.flow(z_p.transpose(1, 2), mask_cf, g=g)
+        if streamed:
+            dec_head, length = head - flow_head, int(return_length)
+            z = z[:, :, dec_head:dec_head + length]
+            mask_cf = mask_cf[:, :, dec_head:dec_head + length]
+            if pitchf is not None:
+                pitchf = pitchf[:, head:head + length]
+        with span("decoder", phone.device):
+            if self.use_f0 and pitchf is not None:
+                o = self.dec(z * mask_cf, pitchf, g=g, n_res=return_length2,
+                             generator=generator,
+                             deterministic=deterministic)
+            else:
+                o = self.dec(z * mask_cf, g=g, n_res=return_length2)
+        return o.transpose(1, 2)                             # (B, T*hop, 1)
+
+
+def make_synthesizer(hp: HParams, use_f0: bool = True, device=None,
+                     seed: int = 0) -> Synthesizer:
+    """A Synthesizer from HParams with random weights drawn from `seed`,
+    on `device` (default "cuda")."""
+    dev = resolve_device(device)
+    m, d = hp.model, hp.data
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = Synthesizer(
+            spec_channels=d.spec_channels,
+            segment_size=hp.train.segment_size,
+            inter_channels=m.inter_channels,
+            hidden_channels=m.hidden_channels,
+            filter_channels=m.filter_channels, n_heads=m.n_heads,
+            n_layers=m.n_layers, kernel_size=m.kernel_size,
+            p_dropout=m.p_dropout, resblock=m.resblock,
+            resblock_kernel_sizes=tuple(m.resblock_kernel_sizes),
+            resblock_dilation_sizes=tuple(
+                tuple(x) for x in m.resblock_dilation_sizes),
+            upsample_rates=tuple(m.upsample_rates),
+            upsample_initial_channel=m.upsample_initial_channel,
+            upsample_kernel_sizes=tuple(m.upsample_kernel_sizes),
+            spk_embed_dim=m.spk_embed_dim, gin_channels=m.gin_channels,
+            sr=d.sampling_rate, encoder_dim=hp.encoder_dim, use_f0=use_f0)
+    return net.to(dev).eval()

@@ -1,0 +1,169 @@
+"""VITS relative-position attention encoder, channel-last (B, T, C)
+(port of tpu_rvc/nn/attention.py:95-297).
+
+For T > W + 1 with lengths known (every call from `Encoder`), attention
+goes through `banded_rel_attention` (ops/kernels/rel_attention.py): the
+CUDA kernel on the card, its plain banded twin on the CPU.  Short
+sequences (T <= W + 1) take the Shaw index-shuffle branch, as the JAX
+module does (`:212-216`).  Parameter names follow the reference torch
+modules (`attn_layers.0.conv_q.weight`, `emb_rel_k`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpu_rvc_torch.ops.kernels.rel_attention import banded_rel_attention
+from .modules import Conv1d, LayerNorm1d
+
+
+def relative_to_absolute(x):
+    """(B, H, L, 2L-1) relative logits -> (B, H, L, L) absolute."""
+    b, h, l, _ = x.shape
+    x = F.pad(x, (0, 1)).reshape(b, h, l * 2 * l)
+    x = F.pad(x, (0, l - 1)).reshape(b, h, l + 1, 2 * l - 1)
+    return x[:, :, :l, l - 1:]
+
+
+def absolute_to_relative(x):
+    """(B, H, L, L) attention weights -> (B, H, L, 2L-1) relative layout."""
+    b, h, l, _ = x.shape
+    x = F.pad(x, (0, l - 1)).reshape(b, h, l * l + l * (l - 1))
+    x = F.pad(x, (l, 0)).reshape(b, h, l, 2 * l)
+    return x[:, :, :, 1:]
+
+
+def window_relative_embeddings(emb, length: int, window: int):
+    """Slice/pad the (1, 2W+1, dk) table to (1, 2L-1, dk)."""
+    pad_len = max(length - (window + 1), 0)
+    start = max((window + 1) - length, 0)
+    if pad_len > 0:
+        emb = F.pad(emb, (0, 0, pad_len, pad_len))
+    return emb[:, start:start + 2 * length - 1]
+
+
+def _pointwise(conv: Conv1d, x):
+    """A k=1 Conv1d applied to channel-last x."""
+    return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+
+class MultiHeadRelAttention(nn.Module):
+    """Self-attention with windowed relative positions (reference
+    attentions.py:9).  x: (B, T, C); lengths: (B,) true lengths."""
+
+    def __init__(self, channels: int, out_channels: int, n_heads: int,
+                 window_size: int = 10):
+        super().__init__()
+        self.channels, self.n_heads, self.window_size = (channels, n_heads,
+                                                         window_size)
+        dk = channels // n_heads
+        self.conv_q = Conv1d(channels, channels, 1)
+        self.conv_k = Conv1d(channels, channels, 1)
+        self.conv_v = Conv1d(channels, channels, 1)
+        self.conv_o = Conv1d(channels, out_channels, 1)
+        for conv in (self.conv_q, self.conv_k, self.conv_v, self.conv_o):
+            nn.init.xavier_uniform_(conv.weight)
+        shape = (1, 2 * window_size + 1, dk)
+        self.emb_rel_k = nn.Parameter(torch.randn(shape) * dk ** -0.5)
+        self.emb_rel_v = nn.Parameter(torch.randn(shape) * dk ** -0.5)
+
+    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+        B, T, C = x.shape
+        h, W = self.n_heads, self.window_size
+        dk = C // h
+
+        def split(t):
+            return t.reshape(B, T, h, dk).transpose(1, 2)
+
+        qh = split(_pointwise(self.conv_q, x))
+        kh = split(_pointwise(self.conv_k, x))
+        vh = split(_pointwise(self.conv_v, x))
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        if T > W + 1:
+            bh_len = lengths.to(torch.int32).repeat_interleave(h).contiguous()
+            out = banded_rel_attention(
+                qh.reshape(B * h, T, dk).contiguous(),
+                kh.reshape(B * h, T, dk).contiguous(),
+                vh.reshape(B * h, T, dk).contiguous(),
+                self.emb_rel_k[0].contiguous(), self.emb_rel_v[0].contiguous(),
+                bh_len, window=W).reshape(B, h, T, dk)
+        else:
+            out = self._shaw(qh, kh, vh, lengths)
+        out = out.transpose(1, 2).reshape(B, T, C)
+        return _pointwise(self.conv_o, out)
+
+    def _shaw(self, qh, kh, vh, lengths):
+        """Short-sequence branch: full relative tables and index shuffles,
+        rows and columns beyond the length masked to -1e4."""
+        T, W = qh.shape[2], self.window_size
+        qs = qh * (1.0 / math.sqrt(qh.shape[-1]))
+        scores = qs @ kh.transpose(-1, -2)
+        kr = window_relative_embeddings(self.emb_rel_k, T, W)
+        scores = scores + relative_to_absolute(qs @ kr[0].t())
+        m = (torch.arange(T, device=qh.device)[None, :]
+             < lengths.to(qh.device)[:, None]).to(qh.dtype)
+        mask = m[:, None, :, None] * m[:, None, None, :]
+        scores = scores.masked_fill(mask == 0, -1e4)
+        p = torch.softmax(scores, dim=-1)
+        vr = window_relative_embeddings(self.emb_rel_v, T, W)
+        return p @ vh + absolute_to_relative(p) @ vr[0]
+
+
+class FFN(nn.Module):
+    """Conv feed-forward (reference attentions.py:228), relu, same padding;
+    channel-last in and out."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 filter_channels: int, kernel_size: int):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
+        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
+
+    def _pad(self, x):
+        k = self.kernel_size
+        return F.pad(x, ((k - 1) // 2, k // 2)) if k > 1 else x
+
+    def forward(self, x, x_mask):
+        # x: (B, T, C); x_mask: (B, T, 1)
+        m = x_mask.transpose(1, 2)
+        y = self.conv_1(self._pad(x.transpose(1, 2) * m))
+        y = self.conv_2(self._pad(torch.relu(y) * m))
+        return (y * m).transpose(1, 2)
+
+
+class Encoder(nn.Module):
+    """n_layers x (rel-attention + FFN), post-norm (reference encoders.py:12)."""
+
+    def __init__(self, hidden_channels: int, filter_channels: int,
+                 n_heads: int, n_layers: int, kernel_size: int = 1,
+                 window_size: int = 10):
+        super().__init__()
+        self.n_layers = n_layers
+        self.attn_layers = nn.ModuleList(
+            MultiHeadRelAttention(hidden_channels, hidden_channels, n_heads,
+                                  window_size) for _ in range(n_layers))
+        self.norm_layers_1 = nn.ModuleList(
+            LayerNorm1d(hidden_channels) for _ in range(n_layers))
+        self.ffn_layers = nn.ModuleList(
+            FFN(hidden_channels, hidden_channels, filter_channels,
+                kernel_size) for _ in range(n_layers))
+        self.norm_layers_2 = nn.ModuleList(
+            LayerNorm1d(hidden_channels) for _ in range(n_layers))
+
+    def forward(self, x, x_mask):
+        # x: (B, T, H); x_mask: (B, T, 1)
+        lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32)
+        x = x * x_mask
+        for i in range(self.n_layers):
+            y = self.attn_layers[i](x, lengths)
+            x = self.norm_layers_1[i](x + y)
+            y = self.ffn_layers[i](x, x_mask)
+            x = self.norm_layers_2[i](x + y)
+        return x * x_mask

@@ -1,0 +1,398 @@
+"""Offline voice-conversion pipeline (port of tpu_rvc/pipeline/vc.py;
+reference infer/modules/vc/pipeline.py).
+
+Per utterance:
+  1. 48 Hz Butterworth high-pass (host, zero phase)
+  2. audio longer than x_max s is split at the quietest sample near every
+     x_center-second boundary (searched within +-x_query s)
+  3. f0 (pm) over the whole reflect-padded signal, on the device
+  4. per chunk: HuBERT -> retrieval blend -> 2x time repeat -> protect
+     mask -> Synthesizer.infer; the x_pad reflect padding is trimmed
+  5. RMS envelope mix and int16 peak scaling (on the device for the single
+     chunk path)
+
+Chunk lengths are bucketed to whole seconds, with true lengths driving
+the masks, exactly as the JAX graphs are; that keeps the port's output
+sample-aligned with the reference package.  The single-chunk path
+(`_full`, the JAX `_full_graph`) runs f0, conversion, trimming, RMS mix
+and int16 scaling on the device and fetches once.  `times` accumulates
+[npy, f0, infer] seconds like the reference.  Only the pm f0 estimator is
+ported; the others raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpu_rvc_torch.audio.dsp import change_rms, highpass_filter
+from tpu_rvc_torch.core.device import fp32_math, resolve_device
+from tpu_rvc_torch.f0.device import pm_f0_device
+from tpu_rvc_torch.ops.resample import linear_interp_1d, resample_poly
+from tpu_rvc_torch.retrieval.index import FeatureIndex
+from tpu_rvc_torch.retrieval.search import knn_blend
+from tpu_rvc_torch.utils.timing import span
+
+SR = 16000
+WINDOW = 160  # f0 / feature frame hop at 16 kHz
+_F0_TODO = ("f0_method={!r} is not ported to tpu_rvc_torch yet: only 'pm' "
+            "is (ROADMAP.md queue A: 'RMVPE' heads the next slice, FCPE, "
+            "CREPE, DIO and Harvest are under 'Remaining f0 estimators')")
+
+
+def _bucket(n: int, step: int = SR) -> int:
+    return int(math.ceil(n / step)) * step
+
+
+def _feat_frames(n16: int) -> int:
+    """Feature frames after HuBERT's 320x extractor, doubled by the 2x
+    time repeat."""
+    return 2 * ((n16 - 400) // 320 + 1)
+
+
+def silence_chunk_bounds(audio: np.ndarray, t_center: int, t_query: int,
+                         t_max: int) -> List[int]:
+    """Quietest-sample split points for long audio (reference
+    pipeline.py:224-236).  Empty if the audio fits one chunk."""
+    opt_ts: List[int] = []
+    audio_pad_w = np.pad(audio, (WINDOW // 2, WINDOW // 2), mode="reflect")
+    if audio_pad_w.shape[0] > t_max:
+        audio_sum = np.zeros_like(audio)
+        for i in range(WINDOW):
+            audio_sum += np.abs(audio_pad_w[i: i - WINDOW])
+        for t in range(t_center, audio.shape[0], t_center):
+            win = audio_sum[t - t_query: t + t_query]
+            opt_ts.append(t - t_query + int(np.argmin(win)))
+    return opt_ts
+
+
+def _device_change_rms(source, sr1: int, target, sr2: int, rate: float):
+    """target *= rms(source)^(1-rate) * rms(target)^(rate-1), half-second
+    centred frames (reference change_rms, pipeline.py:26)."""
+    if rate >= 1.0:
+        return target
+
+    def frame_rms(y, sr):
+        frame, hop = sr // 2 * 2, sr // 2
+        yp = F.pad(y, (frame // 2, frame // 2))
+        return torch.sqrt(torch.mean(yp.unfold(0, frame, hop) ** 2, dim=1))
+
+    n = target.shape[0]
+    rms1 = linear_interp_1d(frame_rms(source, sr1), n)
+    rms2 = torch.clamp(linear_interp_1d(frame_rms(target, sr2), n), min=1e-6)
+    return target * torch.pow(rms1, 1.0 - rate) * torch.pow(rms2, rate - 1.0)
+
+
+def _to_int16(out):
+    """Peak scaling to int16 (reference pipeline.py:356-360)."""
+    audio_max = out.abs().max() / 0.99
+    scale = torch.where(audio_max > 1, 32768.0 / audio_max,
+                        torch.full_like(audio_max, 32768.0))
+    return torch.clamp(out * scale, -32768, 32767).to(torch.int16)
+
+
+class Pipeline:
+    def __init__(self, tgt_sr: int, *, hubert, synth, version: str = "v2",
+                 x_pad: float = 3.0, x_query: float = 10.0,
+                 x_center: float = 60.0, x_max: float = 65.0,
+                 noise_scale: float = 0.66666, deterministic: bool = False,
+                 device=None):
+        self.device = resolve_device(device)
+        self.tgt_sr = tgt_sr
+        self.version = version
+        self.hubert = hubert.to(self.device).eval()
+        self.synth = synth.to(self.device).eval()
+        # prior noise scale; 0 with deterministic=True (sine noise zeroed
+        # too) makes a conversion reproducible for parity checks
+        self.noise_scale = float(noise_scale)
+        self.deterministic = bool(deterministic)
+        self.t_pad = int(SR * x_pad)
+        self.t_pad_tgt = int(tgt_sr * x_pad)
+        self.t_pad2 = self.t_pad * 2
+        self.t_query = int(SR * x_query)
+        self.t_center = int(SR * x_center)
+        self.t_max = int(SR * x_max)
+
+    # ------------------------------------------------------------------
+    def _index_arrays(self, index: Optional[FeatureIndex], index_rate: float):
+        if index is None or index_rate <= 0:
+            return None
+        return index.device_arrays(self.device)
+
+    @torch.no_grad()
+    def _convert(self, audio_b, true_len: int, sid: int, pitch, pitchf,
+                 index_arrays, index_rate: float, protect: float,
+                 generator: torch.Generator):
+        """One bucketed chunk -> target-sr float audio (the JAX
+        `_chunk_graph`).  audio_b: (bucket,) at 16 kHz; pitch/pitchf:
+        (p_len_static,) or None."""
+        bucket = audio_b.shape[0]
+        use_f0 = pitch is not None
+        padding_mask = torch.arange(bucket, device=self.device) >= true_len
+        with span("hubert", self.device):
+            feats = self.hubert(audio_b[None], padding_mask[None])  # (1,F,D)
+        feats0 = feats
+        if index_arrays is not None:
+            with span("retrieval", self.device):
+                feats = knn_blend(feats[0], *index_arrays, index_rate)[None]
+        feats = torch.repeat_interleave(feats, 2, dim=1)
+        p_len_static = min(bucket // WINDOW, feats.shape[1])
+        feats = feats[:, :p_len_static]
+        if use_f0 and protect < 0.5:
+            feats0 = torch.repeat_interleave(feats0, 2, dim=1)[:, :p_len_static]
+            pitchff = torch.where(pitchf > 0, 1.0, protect)[None, :, None]
+            feats = feats * pitchff + feats0 * (1 - pitchff)
+        true_frames = min(true_len // WINDOW, p_len_static)
+        out = self.synth.infer(
+            feats, torch.tensor([true_frames], device=self.device),
+            torch.tensor([sid], device=self.device),
+            pitch[None] if use_f0 else None,
+            pitchf[None] if use_f0 else None,
+            noise_scale=self.noise_scale, deterministic=self.deterministic,
+            generator=generator)
+        return out[0, :, 0]
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    @torch.no_grad()
+    def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
+              index_arrays, index_rate: float, protect: float,
+              rms_mix_rate: float, noise_seed: int):
+        """Single-chunk conversion of the bucketed, padded utterance
+        (the JAX `_full_graph`): f0 + conversion + pad trim + RMS mix +
+        int16, all on the device.  audio: (L,) with L a whole bucket."""
+        L = audio.shape[0]
+        p_len = L // WINDOW
+        p_len_static = min(L // WINDOW, _feat_frames(L))
+        true_frames = min(p_len, p_len_static)
+        pit = pitf = None
+        if use_f0:
+            with span("f0", self.device):
+                pitch, pitchf = pm_f0_device(audio, p_len, f0_up_key)
+            pit, pitf = pitch[:p_len_static], pitchf[:p_len_static]
+        out = self._convert(audio, L, sid, pit, pitf, index_arrays,
+                            index_rate, protect, self._generator(noise_seed))
+        out = out[: true_frames * self.synth.hop]
+        out = out[self.t_pad_tgt: out.shape[0] - self.t_pad_tgt]
+        src16 = audio[self.t_pad: L - self.t_pad]
+        out = _device_change_rms(src16, SR, out, self.tgt_sr, rms_mix_rate)
+        return _to_int16(out)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    @fp32_math()
+    def vc_chunk(self, audio_chunk, sid: int, pitch, pitchf,
+                 index: Optional[FeatureIndex], index_rate: float,
+                 protect: float, times: List[float], noise_seed: int = 0):
+        """Convert one 16 kHz chunk (tensor on the device) -> target-sr
+        float audio on the device, trimmed to its true frame count."""
+        L = int(audio_chunk.shape[0])
+        bucket = _bucket(L)
+        audio_b = F.pad(audio_chunk, (0, bucket - L))
+        p_len_static = min(bucket // WINDOW, _feat_frames(bucket))
+        pit = pitf = None
+        if pitch is not None:
+            n = min(p_len_static, int(pitch.shape[0]))
+            pit = torch.zeros(p_len_static, dtype=torch.int32,
+                              device=self.device)
+            pitf = torch.zeros(p_len_static, dtype=torch.float32,
+                               device=self.device)
+            pit[:n], pitf[:n] = pitch[:n], pitchf[:n]
+        t0 = time.time()
+        out = self._convert(audio_b, L, sid, pit, pitf,
+                            self._index_arrays(index, index_rate),
+                            index_rate, protect, self._generator(noise_seed))
+        times[2] += time.time() - t0
+        true_frames = min(L // WINDOW, p_len_static)
+        return out[: true_frames * self.synth.hop]
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    @fp32_math()
+    def pipeline(self, sid: int, audio: np.ndarray, times: List[float],
+                 f0_up_key: float, f0_method: str,
+                 index: Optional[FeatureIndex], index_rate: float,
+                 if_f0: int, filter_radius, resample_sr: int,
+                 rms_mix_rate: float, protect: float, f0_file=None,
+                 noise_seed: int = 0) -> np.ndarray:
+        """Full conversion (reference pipeline, pipeline.py:186) -> int16."""
+        if if_f0 and f0_method != "pm":
+            raise NotImplementedError(_F0_TODO.format(f0_method))
+        if f0_file is not None or if_f0 not in (0, 1):
+            raise NotImplementedError(
+                "manual f0 curves and precomputed f0 tracks are not ported "
+                "to tpu_rvc_torch yet (ROADMAP.md queue A: 'Remaining f0 "
+                "estimators')")
+        use_f0 = bool(if_f0)
+        audio = highpass_filter(np.asarray(audio, np.float32))
+        opt_ts = silence_chunk_bounds(audio, self.t_center, self.t_query,
+                                      self.t_max)
+        audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
+        index_arrays = self._index_arrays(index, index_rate)
+
+        if not opt_ts:
+            # bucket to the 1 s grid; the tail is reflect-extended so the
+            # RMS envelope and int16 peak see audio-like samples, and the
+            # output is trimmed back to the true length
+            L_true = audio_pad.shape[0]
+            L = _bucket(L_true)
+            if L != L_true:
+                extra = L - L_true
+                audio_pad = np.pad(audio_pad, (0, extra), mode=(
+                    "reflect" if extra < L_true else "constant"))
+            t0 = time.time()
+            out = self._full(torch.as_tensor(audio_pad, device=self.device),
+                             float(f0_up_key), sid, use_f0, index_arrays,
+                             index_rate, protect, rms_mix_rate, noise_seed)
+            if L != L_true:
+                p_len_static = min(L // WINDOW, _feat_frames(L))
+                n_true = (min(L_true // WINDOW, p_len_static) * self.synth.hop
+                          - 2 * self.t_pad_tgt)
+                out = out[:n_true]
+            if self.tgt_sr != resample_sr and resample_sr >= SR:
+                out = resample_poly(out.float()[None] / 32768.0,
+                                    self.tgt_sr, resample_sr)[0]
+                out = torch.clamp(out * 32768.0, -32768, 32767).to(torch.int16)
+            result = out.cpu().numpy()  # the one device->host fetch
+            times[2] += time.time() - t0
+            return result
+
+        audio_pad_dev = torch.as_tensor(audio_pad, device=self.device)
+        p_len = audio_pad.shape[0] // WINDOW
+        pitch = pitchf = None
+        if use_f0:
+            t0 = time.time()
+            Lb = _bucket(audio_pad.shape[0])
+            with span("f0", self.device):
+                pitch, pitchf = pm_f0_device(
+                    F.pad(audio_pad_dev, (0, Lb - audio_pad.shape[0])),
+                    Lb // WINDOW, float(f0_up_key))
+            pitch, pitchf = pitch[:p_len], pitchf[:p_len]
+            times[1] += time.time() - t0
+
+        audio_opt = []
+        s, t = 0, None
+        for t in opt_ts:
+            t = t // WINDOW * WINDOW
+            chunk = audio_pad_dev[s: t + self.t_pad2 + WINDOW]
+            sl = slice(s // WINDOW, (t + self.t_pad2) // WINDOW)
+            out = self.vc_chunk(chunk, sid, pitch[sl] if use_f0 else None,
+                                pitchf[sl] if use_f0 else None, index,
+                                index_rate, protect, times, noise_seed)
+            audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
+            s = t
+        chunk = audio_pad_dev[t:] if t is not None else audio_pad_dev
+        tail = slice(t // WINDOW if t is not None else 0, None)
+        out = self.vc_chunk(chunk, sid, pitch[tail] if use_f0 else None,
+                            pitchf[tail] if use_f0 else None, index,
+                            index_rate, protect, times, noise_seed)
+        audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
+
+        result = torch.cat(audio_opt).cpu().numpy()
+        if rms_mix_rate != 1:
+            result = change_rms(audio, SR, result, self.tgt_sr, rms_mix_rate)
+        if self.tgt_sr != resample_sr and resample_sr >= SR:
+            result = resample_poly(torch.as_tensor(result[None]), self.tgt_sr,
+                                   resample_sr)[0].numpy()
+        audio_max = np.abs(result).max() / 0.99
+        max_int16 = 32768.0
+        if audio_max > 1:
+            max_int16 /= audio_max
+        return (result * max_int16).astype(np.int16)
+
+
+class VC:
+    """Model-lifecycle facade (reference infer/modules/vc/modules.py:18).
+    hubert_path="random" builds a random-weight HuBERT-base (no assets)."""
+
+    def __init__(self, hubert_path: str = "assets/hubert/hubert_base.pt",
+                 x_pad: float = 3.0, device=None):
+        self.device = resolve_device(device)
+        self.hubert_path = hubert_path
+        self.x_pad = x_pad
+        self.pipeline: Optional[Pipeline] = None
+        self.tgt_sr: Optional[int] = None
+        self.version: Optional[str] = None
+        self.if_f0 = 1
+        self.n_spk: Optional[int] = None
+        self._hubert = None
+
+    def get_vc(self, model_path: str, hubert=None):
+        """Load a small model and (once) HuBERT; build the pipeline
+        (reference VC.get_vc, modules.py:32)."""
+        from tpu_rvc_torch.models.loader import load_synthesizer
+
+        synth, meta = load_synthesizer(model_path, self.device)
+        self.tgt_sr = synth.sr
+        self.version = meta.get("version", "v1")
+        self.if_f0 = int(meta.get("f0", 1))
+        self.n_spk = synth.spk_embed_dim
+        if hubert is None:
+            if self._hubert is None:
+                if self.hubert_path == "random":
+                    from tpu_rvc_torch.models.hubert import hubert_for_version
+                    self._hubert = hubert_for_version(self.version,
+                                                      self.device)
+                else:
+                    from tpu_rvc_torch.ckpt.hubert_loader import \
+                        load_hubert_base
+                    self._hubert = load_hubert_base(self.hubert_path,
+                                                    self.version, self.device)
+            hubert = self._hubert
+        self.pipeline = Pipeline(self.tgt_sr, hubert=hubert, synth=synth,
+                                 version=self.version, x_pad=self.x_pad,
+                                 device=self.device)
+        return meta
+
+    def vc_single(self, sid: int, input_audio_path: str, f0_up_key: int = 0,
+                  f0_method: str = "rmvpe",
+                  index: Optional[FeatureIndex] = None,
+                  index_rate: float = 0.75, filter_radius: int = 3,
+                  resample_sr: int = 0, rms_mix_rate: float = 0.25,
+                  protect: float = 0.33, f0_file=None):
+        """Convert one file (reference vc_single, modules.py:117) ->
+        (info, (sr, int16 audio))."""
+        from tpu_rvc_torch.audio.io import load_audio
+
+        if self.pipeline is None:
+            raise RuntimeError("call get_vc first")
+        audio = load_audio(input_audio_path, SR)
+        if len(audio) == 0:
+            raise ValueError(f"{input_audio_path}: empty audio")
+        audio_max = np.abs(audio).max() / 0.95
+        if audio_max > 1:
+            audio = audio / audio_max
+        times = [0.0, 0.0, 0.0]
+        out = self.pipeline.pipeline(
+            sid, audio, times, f0_up_key, f0_method, index, index_rate,
+            self.if_f0, filter_radius, resample_sr, rms_mix_rate, protect,
+            f0_file)
+        tgt = (resample_sr if self.tgt_sr != resample_sr and
+               resample_sr >= SR else self.tgt_sr)
+        info = (f"npy: {times[0]:.2f}s, f0: {times[1]:.2f}s, "
+                f"infer: {times[2]:.2f}s")
+        return info, (tgt, out)
+
+    def vc_multi(self, sid: int, paths: List[str], out_dir: str, **kwargs):
+        """Convert several files into out_dir/<name>.wav (reference
+        vc_multi, modules.py:201); one result line per input, in order."""
+        from tpu_rvc_torch.audio.io import save_wav
+
+        os.makedirs(out_dir, exist_ok=True)
+        infos = []
+        for path in paths:
+            base = os.path.basename(path)
+            try:
+                info, (sr, audio) = self.vc_single(sid, path, **kwargs)
+                save_wav(os.path.join(out_dir, f"{base}.wav"), audio, sr)
+                infos.append(f"{base} -> Success ({info})")
+            except Exception as e:  # attribute the failure to its input
+                infos.append(f"{path} -> {e}")
+        return "\n".join(infos)
