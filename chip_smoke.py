@@ -7,9 +7,11 @@ Phases, one line of output each (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then
      the nvcc build of every kernel source, all at once, with its seconds;
   2. each kernel against its plain PyTorch twin at the main path's shapes
-     (v2/48k, 10 s input in a 16 s bucket), TF32 off as in the port's
-     entry points: max abs / rel error and the median ms of both, from
-     CUDA events after a warm-up;
+     (v2/48k, 10 s input in a 16 s bucket), cuDNN and cuBLAS with TF32 off
+     as in the port's entry points: max abs / rel error and the median ms
+     of both, from CUDA events after a warm-up, beside the kernel's bound
+     at the peak it uses (the tensor cores as 3xTF32) and at the fp32 FMA
+     units' peak;
   3. end to end through the user's entry points: a random-weight v2/48k
      small model `.pth` in the reference layout, a random 10k x 768 index,
      a synthetic 10 s WAV; VC(hubert_path="random").get_vc(path) and
@@ -35,6 +37,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12    # H100 SXM dense TF32 FLOP/s on the tensor cores
+TF32_PER_FP32 = 3     # 3xTF32: tensor-core products per fp32 product
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 W = 10
 
@@ -78,9 +82,14 @@ def compare(got, want, rtol, atol, what):
 
 
 def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    """The least ms the card could take for `flops` fp32 operations run as
+    3xTF32 on the tensor cores and `nbytes` of device memory, which of the
+    two binds, and the same with the fp32 FMA units' peak."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops * TF32_PER_FP32 / PEAK_TF32
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / PEAK_FP32, t_bytes) * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -110,17 +119,19 @@ def check_attention(kr, g):
         keys = T * sum(lens)
         flops = (4 * dk + 5) * keys + 4 * BH * T * (2 * W + 1) * dk
         nbytes = 4 * (4 * BH * T * dk + 2 * (2 * W + 1) * dk) + 4 * BH
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by, b_fma = bound(flops, nbytes)
         say("kernel", name="banded_rel_attention", shape=[BH, T, dk],
             lengths=lens, max_abs_err=max_abs, max_rel_err=max_rel,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        rows.append((max_abs, ms, plain_ms, b_ms, b_by))
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_fp32_fma_ms=b_fma)
+        rows.append((max_abs, ms, plain_ms, b_ms, b_by, b_fma))
     return {"name": "banded_rel_attention", "route": "cuda",
             "source": "tpu_rvc_torch/csrc/rel_attention.cu",
             "replaces": "tpu_rvc/ops/pallas/rel_attention.py:75",
             "max_abs_err": max(r[0] for r in rows), "ms": rows[-1][1],
             "plain_ms": rows[-1][2], "bound_ms": rows[-1][3],
-            "bound_by": rows[-1][4], "library_ms": None}
+            "bound_by": rows[-1][4], "bound_fp32_fma_ms": rows[-1][5],
+            "math": "3xtf32", "library_ms": None}
 
 
 def stage_inputs(rs, C, T, ks, g):
@@ -130,7 +141,7 @@ def stage_inputs(rs, C, T, ks, g):
                     * (1.0 / math.sqrt(k * C)) for _ in range(6)) for k in ks)
     b = tuple(tuple(torch.randn(C, generator=g, device=dev) * 0.1
                     for _ in range(6)) for _ in ks)
-    return x, rs.StageWeights(tuple(ks), (1, 3, 5), w, b)
+    return x, rs.pack_stage(ks, (1, 3, 5), w, b)
 
 
 def stage_cost(C, T, ks):
@@ -160,13 +171,13 @@ def check_stage(rs, g, name, shapes, ks):
         max_abs, max_rel = compare(got, want, 1e-3, 1e-4, f"{name} C={C}")
         ms = median_ms(lambda: fn(x, sw))
         plain_ms = median_ms(lambda: rs.stage_plain(x, sw))
-        b_ms, b_by = stage_cost(C, T, ks)
+        b_ms, b_by, b_fma = stage_cost(C, T, ks)
         say("kernel", name=name, C=C, T=T, kernel_sizes=list(ks),
             max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            launches_per_call=6 * len(ks),
+            bound_fp32_fma_ms=b_fma, launches_per_call=6 * len(ks),
             extra_hbm_ms=stage_extra_hbm_ms(C, T, len(ks)))
-        rows.append((max_abs, ms, plain_ms, b_ms, b_by))
+        rows.append((max_abs, ms, plain_ms, b_ms, b_by, b_fma))
         del x, sw, got, want
     return rows
 
@@ -187,6 +198,7 @@ def check_kernels():
         "max_abs_err": max(r[0] for r in rows),
         "ms": sum(r[1] for r in rows), "plain_ms": sum(r[2] for r in rows),
         "bound_ms": sum(r[3] for r in rows), "bound_by": rows[0][4],
+        "bound_fp32_fma_ms": sum(r[5] for r in rows), "math": "3xtf32",
         "library_ms": None, "per_stage_ms": [r[1] for r in rows]})
     rows = check_stage(rs, g, "fused_resblock", [(64, 383520)], (7,))
     entries.append({
@@ -194,7 +206,9 @@ def check_kernels():
         "source": "tpu_rvc_torch/csrc/resblock.cu",
         "replaces": "tpu_rvc/ops/pallas/resblock.py:237",
         "max_abs_err": rows[0][0], "ms": rows[0][1], "plain_ms": rows[0][2],
-        "bound_ms": rows[0][3], "bound_by": rows[0][4], "library_ms": None})
+        "bound_ms": rows[0][3], "bound_by": rows[0][4],
+        "bound_fp32_fma_ms": rows[0][5], "math": "3xtf32",
+        "library_ms": None})
     return entries
 
 

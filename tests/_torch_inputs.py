@@ -4,7 +4,7 @@ so the CUDA tests that use it also run where JAX is not installed."""
 import numpy as np
 import torch
 
-from tpu_rvc_torch.ops.kernels.resblock import StageWeights
+from tpu_rvc_torch.ops.kernels.resblock import pack_stage
 
 W = 10
 
@@ -26,9 +26,11 @@ def stage_inputs(rng, C, T, ks):
 
 
 def stage_weights(ws, bs, ks, device="cpu"):
+    """`ws` are (K, C_in, C_out), the JAX kernels' layout; the port keeps
+    (K, C_out, C_in)."""
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return StageWeights(tuple(ks), (1, 3, 5),
-                        tuple(tuple(t(w) for w in ws[6 * r:6 * r + 6])
-                              for r in range(len(ks))),
-                        tuple(tuple(t(b) for b in bs[6 * r:6 * r + 6])
-                              for r in range(len(ks))))
+    return pack_stage(ks, (1, 3, 5),
+                      [[t(w.transpose(0, 2, 1).copy())
+                        for w in ws[6 * r:6 * r + 6]] for r in range(len(ks))],
+                      [[t(b) for b in bs[6 * r:6 * r + 6]]
+                       for r in range(len(ks))])

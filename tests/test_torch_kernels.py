@@ -5,6 +5,7 @@ CUDA kernels against the plain twins are in test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +16,14 @@ from tpu_rvc.ops.pallas.rel_attention import (
 from tpu_rvc.ops.pallas.resblock import (fused_resblock as jax_resblock,
                                          fused_stage as jax_stage)
 from tpu_rvc_torch.nn.attention import MultiHeadRelAttention
+from tpu_rvc_torch.nn.modules import ResBlock1
 from tpu_rvc_torch.ops.kernels import (banded_rel_attention, fused_resblock,
                                        fused_stage, launch_counts,
-                                       reset_launch_counts)
+                                       matmul_3xtf32, reset_launch_counts,
+                                       stage_plain, tf32_round, tf32_split)
+from tpu_rvc_torch.ops.kernels import stage_weights as module_stage_weights
+from tpu_rvc_torch.ops.kernels.resblock import (pack_conv_weight,
+                                                unpack_conv_weight)
 
 from _torch_inputs import W, attn_inputs, stage_inputs, stage_weights
 
@@ -129,3 +135,105 @@ def test_wrappers_reject_other_devices(rng):
     x, ws, bs = stage_inputs(rng, 8, 40, (3,))
     with pytest.raises(ValueError, match="unsupported device"):
         fused_resblock(meta(x.T), stage_weights(ws, bs, (3,)))
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32: the split the CUDA kernels make, and the weight layout they read
+# ---------------------------------------------------------------------------
+
+
+def _check_split(x):
+    hi, lo = tf32_split(torch.from_numpy(x))
+    for part in (hi, lo):   # TF32 values: the low 13 mantissa bits are zero
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - torch.from_numpy(x).double()).abs()
+    assert torch.all(err <= 2.0 ** -21 * torch.from_numpy(x).double().abs())
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-30, -1e-30, 3e4, -7.5])
+def test_tf32_split_is_tf32_and_exact_to_2_pow_minus_21(rng, scale):
+    """hi and lo are TF32 values and hi + lo = x to 2^-21 relative, for
+    normal, tiny (but normal: lo stays above the subnormals) and negative
+    values; exact powers of two and zero split to (x, 0)."""
+    _check_split((rng.standard_normal(4096) * scale).astype(np.float32))
+    x = torch.tensor([0.0, 1.0, -2.0, 2.0 ** -100, 1.0 + 2.0 ** -11])
+    hi, lo = tf32_split(x)
+    assert torch.equal(hi[:4], x[:4]) and not lo[:4].any()
+    # a tie rounds away from zero, as cvt.rna does
+    assert hi[4] == 1.0 + 2.0 ** -10 and lo[4] == -(2.0 ** -11)
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.floats(min_value=2.0 ** -100, max_value=2.0 ** 100, width=32),
+       st.booleans())
+def test_tf32_split_property(mag, negative):
+    _check_split(np.asarray([-mag if negative else mag], np.float32))
+
+
+def test_3xtf32_dot_is_fp32_accurate_and_one_tf32_is_not(rng):
+    """256-deep dots: lo.hi + hi.lo + hi.hi summed in fp32 is within 2x of
+    the plain fp32 product's error against fp64, and a single TF32 product
+    (hi.hi) is more than 100x worse: the stated reason for 3xTF32."""
+    a = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err = lambda y: float((y.double() - exact).abs().max())  # noqa: E731
+    e_fp32 = err(a @ b)
+    e_3x = err(matmul_3xtf32(a, b))
+    e_1x = err(tf32_round(a) @ tf32_round(b))
+    assert e_3x <= 2 * e_fp32
+    assert e_1x > 100 * e_fp32
+
+
+@pytest.mark.parametrize("C,K", [(16, 3), (32, 11), (64, 7), (128, 3),
+                                 (256, 3)])
+def test_packed_weights_round_trip_and_follow_the_fragment_order(rng, C, K):
+    """`pack_conv_weight` is a permutation (padded with zero rows below 64
+    channels) that `unpack_conv_weight` inverts, and entry (chunk, tap, k8,
+    m-tile, warp, lane, e) is the wgmma A fragment's element."""
+    w = torch.from_numpy(rng.standard_normal((K, C, C)).astype(np.float32))
+    packed = pack_conv_weight(w)
+    M = max(C, 64)
+    assert packed.shape == (K * M * C,)
+    assert torch.equal(unpack_conv_weight(packed, K, C, C), w)
+    frag = packed.reshape(C // 16, K, 2, M // 64, 4, 32, 4)
+    for ch, tap, k8, mt, warp, lane, e in rng.integers(
+            0, [C // 16, K, 2, M // 64, 4, 32, 4], size=(64, 7)):
+        co = 64 * mt + 16 * warp + lane // 4 + 8 * (e % 2)
+        ci = 16 * ch + 8 * k8 + lane % 4 + 4 * (e // 2)
+        want = w[tap, co, ci] if co < C else 0.0
+        assert frag[ch, tap, k8, mt, warp, lane, e] == want
+
+
+def test_stage_weights_round_trip_to_the_modules(rng):
+    """`stage_weights` keeps [tap][c_out][c_in] and the packed order, both
+    equal to the modules' (C_out, C_in, K) weights, and the plain stage on
+    them is the modules' own convs."""
+    torch.manual_seed(0)
+    blocks = [ResBlock1(32, k) for k in (3, 7, 11)]
+    for rb in blocks:
+        for conv in list(rb.convs1) + list(rb.convs2):
+            conv.weight.data.normal_(0, 0.05)
+            conv.bias.data.normal_(0, 0.1)
+    sw = module_stage_weights(blocks)
+    for r, rb in enumerate(blocks):
+        convs = [c for pair in zip(rb.convs1, rb.convs2) for c in pair]
+        for i, conv in enumerate(convs):
+            K = rb.kernel_size
+            assert sw.w[r][i].shape == (K, 32, 32)
+            assert torch.equal(sw.w[r][i].permute(1, 2, 0), conv.weight)
+            assert torch.equal(
+                unpack_conv_weight(sw.packed[r][i], K, 32, 32)
+                .permute(1, 2, 0), conv.weight)
+            assert torch.equal(sw.b[r][i], conv.bias)
+    x = torch.from_numpy(rng.standard_normal((32, 200)).astype(np.float32))
+    want = 0
+    with torch.no_grad():
+        for rb in blocks:
+            cur = x[None]
+            for c1, c2 in zip(rb.convs1, rb.convs2):
+                t = c1(torch.nn.functional.leaky_relu(cur, 0.1))
+                cur = cur + c2(torch.nn.functional.leaky_relu(t, 0.1))
+            want = want + cur[0] / 3
+    torch.testing.assert_close(stage_plain(x, sw), want, rtol=1e-5,
+                               atol=1e-6)

@@ -8,10 +8,12 @@ integer per wrapper, raised by one at each kernel launch and nowhere else.
 
 from .rel_attention import (banded_rel_attention,
                             banded_rel_attention_plain)
-from .resblock import (fused_resblock, fused_stage, stage_plain,
+from .resblock import (fused_resblock, fused_stage, pack_stage, stage_plain,
                        stage_weights)
+from .tf32 import matmul_3xtf32, tf32_round, tf32_split
 from .counts import launch_counts, reset_launch_counts
 
 __all__ = ["banded_rel_attention", "banded_rel_attention_plain",
-           "fused_resblock", "fused_stage", "stage_plain", "stage_weights",
+           "fused_resblock", "fused_stage", "pack_stage", "stage_plain",
+           "stage_weights", "matmul_3xtf32", "tf32_round", "tf32_split",
            "launch_counts", "reset_launch_counts"]

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-Each `csrc/*.cu` file exposes a plain C interface and is compiled on its
-own into `build/kernels/<name>-<hash>.so` beside the package (the hash
-covers the source text and the flags, so an edit rebuilds).  All the
-sources compile at once, one nvcc process each.  Nothing is built when a
+Each library is one `csrc/*.cu` file with a plain C interface, compiled
+into `build/kernels/<name>-<hash>.so` beside the package (the hash covers
+the source text and the flags, so an edit rebuilds); `resblock.cu` is
+built once per channel width (`-DRESBLOCK_C=...`).  All the libraries
+compile at once, one nvcc process each.  Nothing is built when a
 module is imported: the first launch on a CUDA tensor calls `load()`.
 """
 
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -25,7 +26,12 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v")
-SOURCES = ("rel_attention", "resblock")
+RESBLOCK_CHANNELS = (16, 32, 64, 128, 256)
+# library name -> (source file stem, extra nvcc flags)
+LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "rel_attention": ("rel_attention", ()),
+    **{f"resblock_c{c}": ("resblock", (f"-DRESBLOCK_C={c}",))
+       for c in RESBLOCK_CHANNELS}}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,12 +49,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    stem, extra = LIBS[name]
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    flags = " ".join(NVCC_FLAGS + extra).encode()
+    h = hashlib.sha256(src + flags).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+def build(names: Iterable[str] = tuple(LIBS)) -> Dict[str, Path]:
     """Compile every missing library, all nvcc processes in parallel."""
     global last_build_seconds
     names = list(names)
@@ -60,7 +68,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        stem, extra = LIBS[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -69,7 +79,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         log, _ = proc.communicate()
         ptxas_report[name] = log
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {name}:\n{log}")
         else:
             os.replace(tmp, out)
     if errors:

@@ -1,8 +1,14 @@
 """Banded relative-position attention: CUDA kernel K1 and its plain twin.
 
 Port of tpu_rvc/ops/pallas/rel_attention.py (`banded_rel_attention`).
-The kernel is `csrc/rel_attention.cu`; its header says what bounds it on
-the H100 and how it streams K/V where the TPU kernel kept them resident.
+The kernel is `csrc/rel_attention.cu`: one pass with an online softmax,
+both products on the tensor cores as 3xTF32 (`mma.sync`, fp32-accurate,
+see `tf32.py`), K and V streamed through shared memory where the TPU
+kernel kept them resident.  At the encoder's shape the call is 1.8 GFLOP,
+0.011 ms at the 3xTF32 peak: what decides its time on the H100 is how
+long one warp's instruction stream is and how many SMs the call fills,
+which is what the kernel's layout (16 query rows a warp, the keys of a
+block split over two warp pairs) is about.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import torch
 
 from .counts import launch_counts
 
+HEAD_WIDTHS = (32, 64, 96, 128)  # dk the kernel is built for
+MAX_WINDOW = 16
 _fn = None
 
 
@@ -48,7 +56,7 @@ def _kernel():
     global _fn
     if _fn is None:
         from .build import load
-        fn = load("rel_attention").banded_rel_attention_f32
+        fn = load("rel_attention").banded_rel_attention_3xtf32
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -72,18 +80,22 @@ def banded_rel_attention(q, k, v, emb_rel_k, emb_rel_v, lengths,
                                                    (nb, dk)),
                            ("emb_rel_v", emb_rel_v, (nb, dk))):
         if t.device != q.device or t.dtype != torch.float32 or \
-                tuple(t.shape) != shape or not t.is_contiguous():
+                tuple(t.shape) != shape or not t.is_contiguous() or \
+                t.data_ptr() % 16 != 0:
             raise ValueError(f"banded_rel_attention: {name} must be a "
-                             f"contiguous float32 {shape} tensor on "
-                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+                             f"contiguous, 16-byte aligned float32 {shape} "
+                             f"tensor on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if lengths.device != q.device or lengths.dtype != torch.int32 or \
             tuple(lengths.shape) != (BH,) or not lengths.is_contiguous():
         raise ValueError("banded_rel_attention: lengths must be a contiguous "
                          f"int32 ({BH},) tensor on {q.device}")
-    if dk > 128 or nb > 33:
-        raise ValueError(f"banded_rel_attention: dk={dk} (max 128), "
-                         f"window={window} (max 16) unsupported")
+    if dk not in HEAD_WIDTHS or window > MAX_WINDOW:
+        # the kernel keeps Q and the output as register fragments, so it is
+        # compiled per head width
+        raise ValueError(f"banded_rel_attention: dk={dk} (one of "
+                         f"{HEAD_WIDTHS}), window={window} (max "
+                         f"{MAX_WINDOW}) unsupported")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
