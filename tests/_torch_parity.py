@@ -15,8 +15,13 @@ import torch
 
 from tpu_rvc.ckpt.convert import synthesizer_params_from_state_dict
 from tpu_rvc.ckpt.hubert_loader import hubert_params_from_fairseq
+from tpu_rvc.ckpt.rmvpe_loader import rmvpe_params_from_torch
+from tpu_rvc.models.rmvpe import E2E as JaxE2E
 from tpu_rvc_torch.ckpt.hubert_loader import hubert_state_from_fairseq
+from tpu_rvc_torch.ckpt.rmvpe_loader import (random_rmvpe_reference_state,
+                                             rmvpe_state_from_reference)
 from tpu_rvc_torch.models.hubert import Hubert
+from tpu_rvc_torch.models.rmvpe import E2E
 from tpu_rvc_torch.models.synthesizer import Synthesizer
 
 SMALL_HUBERT = dict(output_layer=2, final_proj=False, embed=64, ffn_dim=128,
@@ -32,6 +37,11 @@ SMALL_SYNTH = dict(
     upsample_rates=(10, 16), upsample_initial_channel=64,
     upsample_kernel_sizes=(20, 32), spk_embed_dim=2, gin_channels=16,
     sr=16000, encoder_dim=64, use_f0=True)
+
+TINY = dict(n_blocks=1, n_gru=1, en_de_layers=2, inter_layers=1,
+            en_out_channels=4)   # the E2E tests/test_pipeline.py:241 drives
+FULL = dict(n_blocks=4, n_gru=1, en_de_layers=5, inter_layers=4,
+            en_out_channels=16)  # E2E(4, 1, (2, 2)), the rmvpe.pt shape
 
 # the convs the reference keeps under weight norm
 _WEIGHT_NORM = re.compile(r"^(dec\.ups\.|dec\.resblocks\.|flow\.flows\.\d+"
@@ -87,3 +97,15 @@ def hubert_pair(cfg, seed):
         {k: v.numpy() for k, v in sd.items()}, cfg["output_layer"],
         cfg["final_proj"])
     return port, {"params": params}
+
+
+def e2e_pair(kw, seed):
+    """(port E2E, JAX E2E, JAX variables) from one reference-layout state
+    dict with non-trivial BatchNorm statistics."""
+    sd = random_rmvpe_reference_state(seed, **kw)
+    port = E2E(**kw).eval()
+    port.load_state_dict(rmvpe_state_from_reference(sd))
+    params = rmvpe_params_from_torch(
+        {k: v.numpy() for k, v in sd.items()}, kw["n_blocks"],
+        kw["en_de_layers"], kw["inter_layers"])
+    return port, JaxE2E(**kw), {"params": params}

@@ -122,3 +122,158 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
     with pytest.raises(ValueError, match="must be one of"):
         fused_resblock(torch.from_numpy(x.T.copy()).to(cuda),
                        stage_weights(ws, bs, (3,), cuda))
+
+
+# ---------------------------------------------------------------------------
+# the shapes one streaming block gives the kernels (48 kHz, 0.25 s blocks,
+# 2.5 s of context: a 281-frame window, a 30-frame tail), and shorter ones
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,T", [
+    (256, 360), (128, 3600), (64, 7200), (32, 14400),  # a 30-frame tail
+    (256, 104), (32, 104),    # less than one 128-step tile
+    (256, 7), (32, 7),        # shorter than any kernel's reach
+    (256, 408), (128, 4080),  # a tail of 34 frames: a formant shift's
+    (64, 361), (32, 14399)])  # T not a multiple of 4 or 8
+def test_stage_kernel_streaming_shapes_and_short_t(rng, cuda, C, T):
+    """rtol 1e-3, atol 1e-4, the stock three resblocks; 18 launches.  The
+    tiles outnumber neither the SMs nor, at the shortest, one block."""
+    ks = (3, 7, 11)
+    x, ws, bs = stage_inputs(rng, C, T, ks)
+    sw = stage_weights(ws, bs, ks, cuda)
+    xt = torch.from_numpy(x.T.copy()).to(cuda)
+    reset_launch_counts()
+    got = fused_stage(xt, sw)
+    assert launch_counts["fused_stage"] == 18
+    torch.testing.assert_close(got, stage_plain(xt, sw), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [7200, 104, 7])
+def test_resblock_kernel_streaming_shapes_and_short_t(rng, cuda, T):
+    """K3 (one k = 7 resblock) at C = 64: rtol 1e-3, atol 1e-4."""
+    x, ws, bs = stage_inputs(rng, 64, T, (7,))
+    sw = stage_weights(ws, bs, (7,), cuda)
+    xt = torch.from_numpy(x.T.copy()).to(cuda)
+    reset_launch_counts()
+    got = fused_resblock(xt, sw)
+    assert launch_counts["fused_resblock"] == 6
+    torch.testing.assert_close(got, stage_plain(xt, sw), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[281, 281], [281, 250]])
+def test_rel_attention_kernel_streaming_window(rng, cuda, lengths):
+    """K1 at (2, 281, 96): T a multiple of neither the 32-row query tile
+    nor the 64-key tile.  rtol/atol 1e-4."""
+    q, k, v, ek, ev, lens = attn_inputs(rng, 2, 281, 96, lengths)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, ek, ev, lens)]
+    reset_launch_counts()
+    got = banded_rel_attention(*args, W)
+    assert launch_counts["banded_rel_attention"] == 1
+    torch.testing.assert_close(got, banded_rel_attention_plain(*args, W),
+                               rtol=1e-4, atol=1e-4)
+
+
+def small_stream_engine(device, **kw):
+    """A narrow synthesizer whose decoder stages are widths the kernels
+    are built for (64 and 32), a small HuBERT and a tiny RMVPE."""
+    from tpu_rvc_torch.f0.rmvpe import RMVPE
+    from tpu_rvc_torch.models.hubert import Hubert
+    from tpu_rvc_torch.models.rmvpe import E2E
+    from tpu_rvc_torch.models.synthesizer import Synthesizer
+    from tpu_rvc_torch.pipeline.rt import RealtimeVC
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        synth = Synthesizer(
+            spec_channels=129, segment_size=640, inter_channels=32,
+            hidden_channels=64, filter_channels=64, n_heads=2, n_layers=1,
+            kernel_size=3, p_dropout=0.0, resblock="1",
+            resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=(
+                (1, 3, 5), (1, 3, 5)), upsample_rates=(10, 16),
+            upsample_initial_channel=128, upsample_kernel_sizes=(20, 32),
+            spk_embed_dim=2, gin_channels=16, sr=16000, encoder_dim=64,
+            use_f0=True).eval()
+        for up in synth.dec.ups:       # see chip_smoke.py write_model
+            up.weight.data.mul_(8.0)
+        hubert = Hubert(output_layer=1, final_proj=False, embed=64,
+                        ffn_dim=64, n_heads=2, pos_conv_k=16,
+                        pos_conv_groups=2, conv_layers=(
+                            (32, 10, 5), (32, 4, 4), (32, 4, 4), (32, 2, 2),
+                            (32, 2, 2))).eval()
+        e2e = E2E(n_blocks=1, n_gru=1, en_de_layers=2, inter_layers=1,
+                  en_out_channels=4).eval()
+    eng = RealtimeVC(hubert=hubert, synth=synth, noise_scale=0.0,
+                     deterministic=True, device=device, **kw)
+    eng.f0_gen._estimators["rmvpe"] = RMVPE(model=e2e, device=device)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f0method", ["pm", "rmvpe"])
+def test_stream_session_on_the_card(cuda, f0method):
+    """A small deterministic stream on the card: the fused block queues
+    its work without one host wait between upload and fetch (PyTorch's
+    sync debug mode set to "error" around it), launches both kernels, and
+    agrees with the host path on the card (1e-4 of full scale) and with
+    the fused path on the CPU (relative L2 1e-3), formant shift included
+    on the host path (a decoder tail of any length)."""
+    from tpu_rvc_torch.pipeline.rt import StreamSession
+
+    sr, n_blocks = 16000, 5
+    t = np.arange(int(sr * 0.16) * n_blocks) / sr
+    ph = 2 * np.pi * np.cumsum(200 + 50 * np.sin(2 * np.pi * 0.8 * t)) / sr
+    audio = (0.4 * np.sin(ph) + 0.15 * np.sin(2 * ph)).astype(np.float32)
+    kw = dict(samplerate=sr, block_time=0.16, crossfade_time=0.04,
+              extra_time=0.5, f0method=f0method, protect=0.33)
+
+    def run(device, fused, guard=False):
+        sess = StreamSession(small_stream_engine(device), fused=fused, **kw)
+        outs = []
+        for i in range(n_blocks):
+            if guard and i == 1:  # block 0 uploads the constants
+                inner = sess._fused._block
+
+                def guarded(*a, inner=inner):
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        return inner(*a)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                sess._fused._block = guarded
+            outs.append(sess.feed(
+                audio[i * sess.block_frame: (i + 1) * sess.block_frame]))
+        return np.concatenate(outs), sess
+
+    reset_launch_counts()
+    fused, sess = run("cuda", True, guard=True)
+    assert launch_counts["banded_rel_attention"] == n_blocks
+    assert launch_counts["fused_stage"] == n_blocks * 2 * 12
+    assert sess._fused_state["wav16"].is_cuda
+    assert np.isfinite(fused).all() and np.abs(fused).max() > 1e-3
+    host, sess = run("cuda", False)
+    assert np.abs(fused - host).max() < 1e-4
+    cpu, _ = run("cpu", True)
+    assert np.linalg.norm(fused - cpu) / np.linalg.norm(cpu) < 1e-3
+    sess.set_formant(1.5)
+    out = sess.feed(audio[: sess.block_frame])
+    assert out.shape == (sess.block_frame,) and np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_train_kmeans_on_the_card(cuda):
+    """Centroids on the card against the CPU's, same draws: rtol 1e-4."""
+    from tpu_rvc_torch.retrieval.index import train_kmeans
+
+    rng = np.random.default_rng(0)
+    centres = rng.standard_normal((40, 32)) * 4
+    x = (centres[rng.integers(0, 40, 2000)]
+         + 0.3 * rng.standard_normal((2000, 32))).astype(np.float32)
+    np.testing.assert_allclose(train_kmeans(x, 64, 3, 512, 0, device="cuda"),
+                               train_kmeans(x, 64, 3, 512, 0, device="cpu"),
+                               rtol=1e-4, atol=1e-5)

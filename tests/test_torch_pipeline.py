@@ -123,8 +123,13 @@ def test_vc_get_vc_from_pth_matches_jax(models, tmp_path):
     assert sr == sr_j == SR and info.startswith("npy:")
     assert_same_conversion(got, np.asarray(want))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        vc.vc_single(0, wav, f0_method="rmvpe")
+    for method in ("dio", "harvest", "crepe", "fcpe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+            vc.vc_single(0, wav, f0_method=method)
+    # rmvpe is ported: its default call needs the checkpoint and says so
+    vc.pipeline.f0_gen.rmvpe_root = tmp_path / "no_rmvpe"
+    with pytest.raises(FileNotFoundError):
+        vc.vc_single(0, wav)
     report = vc.vc_multi(0, [wav], str(tmp_path / "out"), f0_method="pm")
     assert "Success" in report, report
 

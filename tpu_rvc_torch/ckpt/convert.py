@@ -12,6 +12,9 @@ The port's parameters carry the reference torch names and layouts, so:
   tpu_rvc/ckpt/convert.py:122 (conv kernels (K, in, out) -> (out, in, K),
   transposed-conv kernels un-flipped to (in, out, K), Linear transposed).
 * `hubert_state_from_jax(params)` does the same for HuBERT (fairseq names).
+* `rmvpe_state_from_jax(params)` does it for the RMVPE E2E tree (the
+  reference `rmvpe.pt` names; BatchNorm stays folded as (scale, bias)):
+  this package's own copy of the inverse of tpu_rvc/ckpt/rmvpe_loader.py:50.
 """
 
 from __future__ import annotations
@@ -206,4 +209,59 @@ def hubert_state_from_jax(params: Dict[str, Any]) -> StateDict:
     if "final_proj_w" in p:
         out["final_proj.weight"] = np.asarray(p["final_proj_w"]).T
         out["final_proj.bias"] = p["final_proj_b"]
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def rmvpe_state_from_jax(params: Dict[str, Any]) -> StateDict:
+    """tpu_rvc E2E params -> the port's E2E state_dict.  2-D conv kernels
+    (kh, kw, in, out) -> (out, in, kh, kw); the transposed conv's, which
+    the JAX side keeps spatially flipped, -> (in, out, kh, kw) un-flipped;
+    GRU and Linear matrices transposed."""
+    p = params.get("params", params)
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(w):
+        return np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))
+
+    def bn(tree, prefix):
+        out[f"{prefix}.scale"] = tree["scale"]
+        out[f"{prefix}.bias"] = tree["bias"]
+
+    def conv_block_res(tree, prefix):
+        out[f"{prefix}.conv.0.weight"] = conv(tree["conv0_w"])
+        bn(tree["bn0"], f"{prefix}.conv.1")
+        out[f"{prefix}.conv.3.weight"] = conv(tree["conv1_w"])
+        bn(tree["bn1"], f"{prefix}.conv.4")
+        if "shortcut_w" in tree:
+            out[f"{prefix}.shortcut.weight"] = conv(tree["shortcut_w"])
+            out[f"{prefix}.shortcut.bias"] = tree["shortcut_b"]
+
+    def blocks(tree, prefix):
+        for j in range(sum(1 for k in tree if k.startswith("block_"))):
+            conv_block_res(tree[f"block_{j}"], f"{prefix}.{j}")
+
+    unet = p["unet"]
+    bn(unet["in_bn"], "unet.encoder.bn")
+    for name, tree in unet.items():
+        kind, _, i = name.partition("_")
+        if kind == "enc":
+            blocks(tree, f"unet.encoder.layers.{i}.conv")
+        elif kind == "inter":
+            blocks(tree, f"unet.intermediate.layers.{i}.conv")
+        elif kind == "dec":
+            d = f"unet.decoder.layers.{i}"
+            up = np.asarray(tree["up_w"], np.float32)[::-1, ::-1]
+            out[f"{d}.conv1.0.weight"] = np.transpose(up, (2, 3, 0, 1))
+            bn(tree["up_bn"], f"{d}.conv1.1")
+            blocks(tree, f"{d}.conv2")
+    out["cnn.weight"] = conv(p["cnn_w"])
+    out["cnn.bias"] = p["cnn_b"]
+    for sfx_t, sfx_j in (("", ""), ("_reverse", "_rev")):
+        g = p["gru"]
+        out[f"fc.0.gru.weight_ih_l0{sfx_t}"] = np.asarray(g[f"wi{sfx_j}"]).T
+        out[f"fc.0.gru.weight_hh_l0{sfx_t}"] = np.asarray(g[f"wh{sfx_j}"]).T
+        out[f"fc.0.gru.bias_ih_l0{sfx_t}"] = g[f"bi{sfx_j}"]
+        out[f"fc.0.gru.bias_hh_l0{sfx_t}"] = g[f"bh{sfx_j}"]
+    out["fc.1.weight"] = np.asarray(p["fc_w"]).T
+    out["fc.1.bias"] = p["fc_b"]
     return {k: _tensor(v) for k, v in out.items()}

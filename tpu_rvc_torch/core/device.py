@@ -35,3 +35,18 @@ def fp32_math():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+_constants = {}
+
+
+def device_constant(key, make, device) -> torch.Tensor:
+    """A small constant tensor (a window, a filterbank, a resampling
+    kernel) built once per `key` and device by `make()` (numpy array or
+    CPU tensor) and kept there.  Uploading it anew in every call would be
+    a blocking host-to-device copy in the middle of a streaming block."""
+    dev = torch.device(device)
+    full_key = (key, dev.type, dev.index)
+    if full_key not in _constants:
+        _constants[full_key] = torch.as_tensor(make()).to(dev)
+    return _constants[full_key]

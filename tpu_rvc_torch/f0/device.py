@@ -1,8 +1,10 @@
-"""On-device f0 post-processing and the pm pitch track (port of
-tpu_rvc/f0/device.py:20-83).
+"""On-device f0 post-processing and the pm and RMVPE pitch tracks (port of
+tpu_rvc/f0/device.py:20-141).
 
-Gap interpolation, transpose and coarse mel quantization stay on the
-device between the estimator and the synthesizer, as in the JAX package.
+Decode, resize, gap interpolation, transpose and coarse mel quantization
+stay on the device between the estimator and the synthesizer, as in the
+JAX package: nothing here waits for the device or reads a tensor's value
+on the host.
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from .base import F0_MAX, F0_MIN
-from .pm import _pm_f0
+from .pm import pm_track
+from .rmvpe import rmvpe_salience
 
 
 def interpolate_f0(f0: torch.Tensor) -> torch.Tensor:
@@ -56,15 +59,56 @@ def pm_f0_device(wav: torch.Tensor, p_len: int, f0_up_key: float,
                  f0_max: float = F0_MAX):
     """Device-side pm pitch: estimate -> fit length -> interpolate ->
     transpose -> quantise.  wav: (T,) at `sr` -> (coarse, f0) of p_len."""
-    win = int(3 * sr / f0_min)
-    win -= win % 2
-    pad = win // 2
-    wav_p = F.pad(wav[None, None], (pad, pad), mode="reflect")[0, 0]
-    f0 = _pm_f0(wav_p, sr, hop, win, float(f0_min), float(f0_max))
-    m = f0.shape[0]
-    if m >= p_len:
-        f0 = f0[:p_len]
-    else:  # centre pad (base._fit_length)
-        left = (p_len - m + 1) // 2
-        f0 = F.pad(f0, (left, p_len - m - left))
+    f0 = pm_track(wav, p_len, sr, hop, f0_min, f0_max)
     return post_process(interpolate_f0(f0), f0_up_key, f0_min, f0_max)
+
+
+def to_local_average_cents(salience: torch.Tensor,
+                           threshold: float = 0.05) -> torch.Tensor:
+    """Device-side RMVPE decode (f0/rmvpe.py `to_local_average_cents`):
+    salience (T, 360) -> cents, 0 where the peak is not above the
+    threshold.  Where a row's maximum is tied the CPU takes the first bin;
+    the CUDA argmax does not promise which."""
+    cents = 20.0 * torch.arange(360, device=salience.device,
+                                dtype=torch.float32) + 1997.3794084376191
+    cents_p = F.pad(cents, (4, 4))
+    sal_p = F.pad(salience, (4, 4))
+    center = torch.argmax(salience, dim=1) + 4
+    idx = center[:, None] + torch.arange(-4, 5, device=salience.device)
+    todo_sal = sal_p.gather(1, idx)
+    divided = (todo_sal * cents_p[idx]).sum(1) / todo_sal.sum(1)
+    maxx = salience.amax(dim=1)
+    return torch.where(maxx > threshold, divided, torch.zeros_like(divided))
+
+
+def resize_f0(f0: torch.Tensor, target_len: int) -> torch.Tensor:
+    """Device-side f0 resize (base.resize_f0): unvoiced frames become NaN,
+    linear resample, NaN -> 0, so a voiced/unvoiced edge never
+    interpolates through 0."""
+    n = f0.shape[0]
+    f0 = f0.to(torch.float32)
+    src = torch.where(f0 < 0.001, torch.full_like(f0, float("nan")), f0)
+    pos = torch.arange(target_len, device=f0.device) * (n / target_len)
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 1)
+    hi = torch.clamp(lo + 1, 0, n - 1)
+    frac = pos - lo
+    out = src[lo] * (1 - frac) + src[hi] * frac
+    # a point on the grid must not pull NaN in from its other neighbour
+    # (0 * NaN is NaN, and would zero a voiced frame) ...
+    out = torch.where(frac == 0, src[lo], out)
+    # ... and np.interp holds the last source point beyond it
+    out = torch.where(pos >= n - 1, src[n - 1], out)
+    return torch.nan_to_num(out, nan=0.0)
+
+
+def rmvpe_f0_device(wav: torch.Tensor, p_len: int, f0_up_key: float,
+                    rmvpe_model, threshold: float = 0.03):
+    """Device-side RMVPE pitch: mel -> E2E -> local-average decode ->
+    resize -> interpolate -> transpose -> quantise.  wav: (T,) at 16 kHz
+    -> (coarse, f0) of p_len.  The quantisation range is the global
+    F0_MIN/F0_MAX, not the estimator's 30-8000 Hz search range."""
+    hidden = rmvpe_salience(rmvpe_model, wav[None])[0].to(torch.float32)
+    cents = to_local_average_cents(hidden, threshold)
+    f0 = 10.0 * torch.pow(2.0, cents / 1200.0)
+    f0 = torch.where(f0 == 10.0, torch.zeros_like(f0), f0)
+    return post_process(interpolate_f0(resize_f0(f0, p_len)), f0_up_key)

@@ -12,8 +12,14 @@ from __future__ import annotations
 
 import math
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from tpu_rvc_torch.core.device import device_constant, resolve_device
+from .base import F0Predictor, interpolate_f0
 
 
 def _pm_f0(wav: torch.Tensor, sr: int, hop: int, win: int, f0_min: float,
@@ -22,9 +28,10 @@ def _pm_f0(wav: torch.Tensor, sr: int, hop: int, win: int, f0_min: float,
     dev = wav.device
     frames = wav.unfold(0, win, hop)                         # (F, win)
     frames = frames - frames.mean(dim=1, keepdim=True)
-    n = np.arange(win)
-    window = torch.as_tensor(0.5 - 0.5 * np.cos(2 * np.pi * n / (win - 1)),
-                             dtype=torch.float32, device=dev)
+    window = device_constant(
+        ("pm_hann", win),
+        lambda: (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win) / (win - 1))
+                 ).astype(np.float32), dev)
     xw = frames * window
     nfft = int(2 ** math.ceil(math.log2(2 * win)))
     spec = torch.fft.rfft(xw, n=nfft, dim=1)
@@ -61,3 +68,44 @@ def _pm_f0(wav: torch.Tensor, sr: int, hop: int, win: int, f0_min: float,
     voiced = ((y1 > voicing_threshold) & (frame_amp > 0.03 * global_amp)
               & (f0 >= f0_min) & (f0 <= f0_max))
     return torch.where(voiced, f0, torch.zeros_like(f0)).to(torch.float32)
+
+
+def pm_track(wav: torch.Tensor, p_len: int, sr: int, hop: int, f0_min: float,
+             f0_max: float) -> torch.Tensor:
+    """wav (T,) on any device -> raw pm f0 of exactly p_len frames.
+    Praat window: 3 periods of f0_min, reflect-padded so that frame 0 is
+    centred at t = 0; centre-padded or trimmed to p_len (base
+    `_fit_length`)."""
+    win = int(3 * sr / f0_min)
+    win -= win % 2
+    pad = win // 2
+    wav_p = F.pad(wav[None, None], (pad, pad), mode="reflect")[0, 0]
+    f0 = _pm_f0(wav_p, sr, hop, win, float(f0_min), float(f0_max))
+    m = f0.shape[0]
+    if m >= p_len:
+        return f0[:p_len]
+    left = (p_len - m + 1) // 2
+    return F.pad(f0, (left, p_len - m - left))
+
+
+class PM(F0Predictor):
+    """Autocorrelation ("parselmouth") estimator (reference
+    rvc/f0/pm.py:9): the track on `device`, the gap interpolation in
+    numpy."""
+
+    def __init__(self, hop_length: int = 160, f0_min: float = 50.0,
+                 f0_max: float = 1100.0, sampling_rate: int = 16000,
+                 device=None):
+        super().__init__(hop_length, f0_min, f0_max, sampling_rate)
+        self.device = resolve_device(device)
+
+    @torch.no_grad()
+    def compute_f0(self, wav: np.ndarray, p_len: Optional[int] = None,
+                   filter_radius=None) -> np.ndarray:
+        wav = np.asarray(wav, np.float32)
+        if p_len is None:
+            p_len = wav.shape[0] // self.hop_length
+        f0 = pm_track(torch.from_numpy(wav).to(self.device), p_len,
+                      self.sampling_rate, self.hop_length, self.f0_min,
+                      self.f0_max)
+        return interpolate_f0(f0.cpu().numpy())[0]

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_rvc_torch.core.device import device_constant
+
 
 @lru_cache(maxsize=32)
 def _sinc_kernel(up: int, down: int, width: int = 64, rolloff: float = 0.945,
@@ -38,7 +40,8 @@ def resample_poly(x: torch.Tensor, orig_sr: int, new_sr: int) -> torch.Tensor:
         return x
     g = math.gcd(orig_sr, new_sr)
     up, down = new_sr // g, orig_sr // g
-    kern = torch.from_numpy(_sinc_kernel(up, down)).to(x.device)  # (up, K)
+    kern = device_constant(("sinc", up, down),
+                           lambda: _sinc_kernel(up, down), x.device)  # (up, K)
     half = (kern.shape[1] - 1) // 2
     shape = x.shape
     xb = F.pad(x.reshape(-1, 1, shape[-1]).float(), (half, half + down))

@@ -5,7 +5,7 @@ Per utterance:
   1. 48 Hz Butterworth high-pass (host, zero phase)
   2. audio longer than x_max s is split at the quietest sample near every
      x_center-second boundary (searched within +-x_query s)
-  3. f0 (pm) over the whole reflect-padded signal, on the device
+  3. f0 (pm or RMVPE) over the whole reflect-padded signal, on the device
   4. per chunk: HuBERT -> retrieval blend -> 2x time repeat -> protect
      mask -> Synthesizer.infer; the x_pad reflect padding is trimmed
   5. RMS envelope mix and int16 peak scaling (on the device for the single
@@ -16,8 +16,10 @@ the masks, exactly as the JAX graphs are; that keeps the port's output
 sample-aligned with the reference package.  The single-chunk path
 (`_full`, the JAX `_full_graph`) runs f0, conversion, trimming, RMS mix
 and int16 scaling on the device and fetches once.  `times` accumulates
-[npy, f0, infer] seconds like the reference.  Only the pm f0 estimator is
-ported; the others raise NotImplementedError.
+[npy, f0, infer] seconds like the reference.  The pm and RMVPE f0
+estimators are ported (`rmvpe_root` names the directory of `rmvpe.pt`,
+which must exist once f0_method="rmvpe" is asked for); dio, harvest, crepe
+and fcpe raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ import torch.nn.functional as F
 
 from tpu_rvc_torch.audio.dsp import change_rms, highpass_filter
 from tpu_rvc_torch.core.device import fp32_math, resolve_device
-from tpu_rvc_torch.f0.device import pm_f0_device
+from tpu_rvc_torch.f0.device import pm_f0_device, rmvpe_f0_device
+from tpu_rvc_torch.f0.gen import F0_TODO, PORTED
+from tpu_rvc_torch.f0.gen import Generator as F0Generator
 from tpu_rvc_torch.ops.resample import linear_interp_1d, resample_poly
 from tpu_rvc_torch.retrieval.index import FeatureIndex
 from tpu_rvc_torch.retrieval.search import knn_blend
@@ -41,9 +45,6 @@ from tpu_rvc_torch.utils.timing import span
 
 SR = 16000
 WINDOW = 160  # f0 / feature frame hop at 16 kHz
-_F0_TODO = ("f0_method={!r} is not ported to tpu_rvc_torch yet: only 'pm' "
-            "is (ROADMAP.md queue A: 'RMVPE' heads the next slice, FCPE, "
-            "CREPE, DIO and Harvest are under 'Remaining f0 estimators')")
 
 
 def _bucket(n: int, step: int = SR) -> int:
@@ -101,6 +102,7 @@ class Pipeline:
     def __init__(self, tgt_sr: int, *, hubert, synth, version: str = "v2",
                  x_pad: float = 3.0, x_query: float = 10.0,
                  x_center: float = 60.0, x_max: float = 65.0,
+                 rmvpe_root: str = "assets/rmvpe",
                  noise_scale: float = 0.66666, deterministic: bool = False,
                  device=None):
         self.device = resolve_device(device)
@@ -118,6 +120,8 @@ class Pipeline:
         self.t_query = int(SR * x_query)
         self.t_center = int(SR * x_center)
         self.t_max = int(SR * x_max)
+        self.f0_gen = F0Generator(rmvpe_root, x_pad, window=WINDOW, sr=SR,
+                                  device=self.device)
 
     # ------------------------------------------------------------------
     def _index_arrays(self, index: Optional[FeatureIndex], index_rate: float):
@@ -164,7 +168,7 @@ class Pipeline:
     @torch.no_grad()
     def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
               index_arrays, index_rate: float, protect: float,
-              rms_mix_rate: float, noise_seed: int):
+              rms_mix_rate: float, noise_seed: int, f0_method: str = "pm"):
         """Single-chunk conversion of the bucketed, padded utterance
         (the JAX `_full_graph`): f0 + conversion + pad trim + RMS mix +
         int16, all on the device.  audio: (L,) with L a whole bucket."""
@@ -175,7 +179,12 @@ class Pipeline:
         pit = pitf = None
         if use_f0:
             with span("f0", self.device):
-                pitch, pitchf = pm_f0_device(audio, p_len, f0_up_key)
+                if f0_method == "rmvpe":
+                    pitch, pitchf = rmvpe_f0_device(
+                        audio, p_len, f0_up_key,
+                        self.f0_gen._get("rmvpe").model)
+                else:
+                    pitch, pitchf = pm_f0_device(audio, p_len, f0_up_key)
             pit, pitf = pitch[:p_len_static], pitchf[:p_len_static]
         out = self._convert(audio, L, sid, pit, pitf, index_arrays,
                             index_rate, protect, self._generator(noise_seed))
@@ -223,8 +232,8 @@ class Pipeline:
                  rms_mix_rate: float, protect: float, f0_file=None,
                  noise_seed: int = 0) -> np.ndarray:
         """Full conversion (reference pipeline, pipeline.py:186) -> int16."""
-        if if_f0 and f0_method != "pm":
-            raise NotImplementedError(_F0_TODO.format(f0_method))
+        if if_f0 and f0_method not in PORTED:
+            raise NotImplementedError(F0_TODO.format(f0_method))
         if f0_file is not None or if_f0 not in (0, 1):
             raise NotImplementedError(
                 "manual f0 curves and precomputed f0 tracks are not ported "
@@ -250,7 +259,8 @@ class Pipeline:
             t0 = time.time()
             out = self._full(torch.as_tensor(audio_pad, device=self.device),
                              float(f0_up_key), sid, use_f0, index_arrays,
-                             index_rate, protect, rms_mix_rate, noise_seed)
+                             index_rate, protect, rms_mix_rate, noise_seed,
+                             f0_method)
             if L != L_true:
                 p_len_static = min(L // WINDOW, _feat_frames(L))
                 n_true = (min(L_true // WINDOW, p_len_static) * self.synth.hop
@@ -269,11 +279,17 @@ class Pipeline:
         pitch = pitchf = None
         if use_f0:
             t0 = time.time()
-            Lb = _bucket(audio_pad.shape[0])
             with span("f0", self.device):
-                pitch, pitchf = pm_f0_device(
-                    F.pad(audio_pad_dev, (0, Lb - audio_pad.shape[0])),
-                    Lb // WINDOW, float(f0_up_key))
+                if f0_method == "pm":
+                    Lb = _bucket(audio_pad.shape[0])
+                    pitch, pitchf = pm_f0_device(
+                        F.pad(audio_pad_dev, (0, Lb - audio_pad.shape[0])),
+                        Lb // WINDOW, float(f0_up_key))
+                else:  # the estimator on the device, its decode in numpy
+                    c, f = self.f0_gen.calculate(
+                        audio_pad, p_len, f0_up_key, f0_method, filter_radius)
+                    pitch = torch.as_tensor(c, device=self.device)
+                    pitchf = torch.as_tensor(f, device=self.device)
             pitch, pitchf = pitch[:p_len], pitchf[:p_len]
             times[1] += time.time() - t0
 
@@ -312,9 +328,11 @@ class VC:
     """Model-lifecycle facade (reference infer/modules/vc/modules.py:18).
     hubert_path="random" builds a random-weight HuBERT-base (no assets)."""
 
-    def __init__(self, hubert_path: str = "assets/hubert/hubert_base.pt",
+    def __init__(self, rmvpe_root: str = "assets/rmvpe",
+                 hubert_path: str = "assets/hubert/hubert_base.pt",
                  x_pad: float = 3.0, device=None):
         self.device = resolve_device(device)
+        self.rmvpe_root = rmvpe_root
         self.hubert_path = hubert_path
         self.x_pad = x_pad
         self.pipeline: Optional[Pipeline] = None
@@ -348,6 +366,7 @@ class VC:
             hubert = self._hubert
         self.pipeline = Pipeline(self.tgt_sr, hubert=hubert, synth=synth,
                                  version=self.version, x_pad=self.x_pad,
+                                 rmvpe_root=self.rmvpe_root,
                                  device=self.device)
         return meta
 

@@ -1,4 +1,4 @@
-from .index import FeatureIndex
+from .index import FeatureIndex, build_index, train_kmeans
 from .search import knn_blend
 
-__all__ = ["FeatureIndex", "knn_blend"]
+__all__ = ["FeatureIndex", "build_index", "knn_blend", "train_kmeans"]
