@@ -30,23 +30,54 @@ Phases, one line of output each (any failure exits non-zero):
   8. streaming at full width: RealtimeVC + StreamSession(48000, 0.25,
      0.05, 2.5, "rmvpe", fused=True) with the index, 3 warm-up blocks (one
      of them with PyTorch's sync debug mode set to "error" between the
-     upload and the fetch), then 40 blocks: wall ms, per-stage CUDA-event
+     upload and the fetch), then 20 blocks: wall ms, per-stage CUDA-event
      ms and launches per block, and from torch.profiler over 4 more
      blocks the device's busy ms a block (its share of the median wall of
-     the 40 unprofiled blocks); the same 40 blocks with fused=False;
+     the 20 unprofiled blocks); the same 20 blocks with fused=False;
   9. streaming on the single-resblock model: 5 blocks;
  10. streaming on the card against the CPU, deterministic, 8 blocks, pm
      and rmvpe (relative L2 < 1e-3), and fused against host path on the
      card (max abs difference < 1e-4 of full scale);
+ 11. the kernels with a stream axis, as one serving tick of 8 streams
+     gives them: K2 at (8, C, T) and K3 at (8, 64, 7200) against the
+     batched plain twin and, bit for bit, against the same kernel launched
+     stream by stream; K1 at (16, 281, 96); ms beside 8 x the
+     single-stream ms and the bound of 8 x the work;
+ 12. multi-stream serving at full width: SlotScheduler(48000, 0.25, 0.05,
+     2.5, "rmvpe") with the index, N clients attached and fed their own
+     voices in lockstep, for N = 8 (3 warm-up + 20 timed ticks), 1 and 4
+     (3 + 10): serial mode with wall ms, CUDA-event spans, launches a tick
+     (6 K1 and 72 K2 for every N), the device's busy share, peak memory,
+     underruns (0); then pipelined on the same audio (delivered one tick
+     later, the last block by flush(); within 1e-5 of the serial run, as
+     two runs of one mode are, see `serving`); a warm-up tick runs under
+     the sync debug mode as in 8; on the single-resblock model 3 ticks of
+     4 slots (24 K3 launches a tick); then pipelined against serial sample
+     for sample, 4 slots, 5 blocks, deterministic engine, cuDNN held to
+     its deterministic algorithms;
+ 13. every stream of a deterministic 8-slot scheduler against its own
+     StreamSession on the card (1e-4 of full scale, SOLA margins
+     printed), and two of them against a scheduler on the CPU (relative L2
+     < 1e-3); then a tick that feeds slots 0 and 3 only (the other six
+     state rows bit-identical), and a client that leaves slot 2 while a
+     new one takes it (its first block is a fresh session's);
+ 14. noise reduction: StreamSession with both denoisers, 6 blocks on the
+     card against the CPU (relative L2 < 1e-3); TorchGate on 1 s of tone
+     and noise lowers the noise floor;
+ 15. the TCP server on 127.0.0.1, an ephemeral port, two `stream_file`
+     clients in threads with 1 s wavs (the scheduler reads a clock that
+     stands still, so that no wall-clock pause counts as an underrun);
 then one JSON line of kernels, the card line again, and the result line.
 """
 
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -115,9 +146,9 @@ def bound(flops, nbytes):
 
 
 def check_attention(kr, g, T, lengths, phase="kernel"):
-    """K1 at (2, T, 96) for each of `lengths`; rows of (max abs err, ms,
-    plain ms, bound ms, bound by, FMA bound ms)."""
-    BH, dk = 2, 96
+    """K1 at (BH, T, 96) for each of `lengths` (BH of them each); rows of
+    (max abs err, ms, plain ms, bound ms, bound by, FMA bound ms)."""
+    BH, dk = len(lengths[0]), 96
     dev = torch.device("cuda")
     mk = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     q, k, v = mk(BH, T, dk), mk(BH, T, dk), mk(BH, T, dk)
@@ -147,9 +178,14 @@ def check_attention(kr, g, T, lengths, phase="kernel"):
     return rows
 
 
-def stage_inputs(rs, C, T, ks, g):
+def stage_inputs(rs, C, T, ks, g, N=1):
+    """x (C, T), or (N, C, T) streams of similar audio: a common part
+    plus a tenth of their own, so that a row taken from the neighbouring
+    stream would be a small error."""
     dev = torch.device("cuda")
     x = torch.randn(C, T, generator=g, device=dev) * 0.3
+    if N > 1:
+        x = x + torch.randn(N, C, T, generator=g, device=dev) * 0.03
     w = tuple(tuple(torch.randn(k, C, C, generator=g, device=dev)
                     * (1.0 / math.sqrt(k * C)) for _ in range(6)) for k in ks)
     b = tuple(tuple(torch.randn(C, generator=g, device=dev) * 0.1
@@ -157,9 +193,11 @@ def stage_inputs(rs, C, T, ks, g):
     return x, rs.pack_stage(ks, (1, 3, 5), w, b)
 
 
-def stage_cost(C, T, ks):
-    flops = 2 * C * C * T * 6 * sum(ks)
-    nbytes = 4 * (2 * C * T + 6 * sum(ks) * C * C + 6 * len(ks) * C)
+def stage_cost(C, T, ks, N=1):
+    """N streams: N x the operations and the activations, the weights
+    read once."""
+    flops = 2 * C * C * T * 6 * sum(ks) * N
+    nbytes = 4 * (2 * C * T * N + 6 * sum(ks) * C * C + 6 * len(ks) * C)
     return bound(flops, nbytes)
 
 
@@ -173,24 +211,38 @@ def stage_extra_hbm_ms(C, T, n_rb, n_d=3):
     return 4 * C * T * rows / PEAK_BYTES * 1e3
 
 
-def check_stage(rs, g, name, shapes, ks, phase="kernel"):
+def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1):
+    """K2 (or K3 with one kernel size) at each (C, T) of `shapes`, for N
+    streams at once when N > 1: then the batched launch must also equal
+    the same kernel launched stream by stream, bit for bit."""
     fn = rs.fused_stage if len(ks) > 1 else rs.fused_resblock
     rows = []
     for C, T in shapes:
-        x, sw = stage_inputs(rs, C, T, ks, g)
+        x, sw = stage_inputs(rs, C, T, ks, g, N)
         got = fn(x, sw)
         want = rs.stage_plain(x, sw)
         torch.cuda.synchronize()
         max_abs, max_rel = compare(got, want, 1e-3, 1e-4, f"{name} C={C}")
+        extra = {}
+        if N > 1:
+            by_stream = torch.stack([fn(x[n], sw) for n in range(N)])
+            if not torch.equal(got, by_stream):
+                raise AssertionError(
+                    f"{name} C={C} T={T}: the launch over {N} streams "
+                    "differs from the stream-by-stream launches by "
+                    f"{float((got - by_stream).abs().max())}")
+            extra = dict(streams=N, equals_stream_by_stream_bitwise=True,
+                         stream_by_stream_ms=median_ms(lambda: [
+                             fn(x[n], sw) for n in range(N)], iters=20))
         iters = 5 if T > 100000 else 20
         ms = median_ms(lambda: fn(x, sw), iters=iters)
         plain_ms = median_ms(lambda: rs.stage_plain(x, sw), iters=iters)
-        b_ms, b_by, b_fma = stage_cost(C, T, ks)
+        b_ms, b_by, b_fma = stage_cost(C, T, ks, N)
         say(phase, name=name, C=C, T=T, kernel_sizes=list(ks),
             max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             bound_fp32_fma_ms=b_fma, launches_per_call=6 * len(ks),
-            extra_hbm_ms=stage_extra_hbm_ms(C, T, len(ks)))
+            extra_hbm_ms=stage_extra_hbm_ms(C, T * N, len(ks)), **extra)
         rows.append((max_abs, ms, plain_ms, b_ms, b_by, b_fma))
         del x, sw, got, want
     return rows
@@ -200,33 +252,43 @@ def check_stage(rs, g, name, shapes, ks, phase="kernel"):
 # context: enc_p sees the 281-frame window, the decoder the 30-frame tail
 STREAM_T = 281
 STREAM_STAGES = [(256, 360), (128, 3600), (64, 7200), (32, 14400)]
+BATCH_N = 8   # streams of one serving tick
 
 
-def kernel_entry(name, line, rows, stream_rows, **extra):
+def kernel_entry(name, line, rows, stream_rows, batch_rows, **extra):
     """A line of the `kernels` object: offline numbers from `rows` (the
     stages of a call summed; for K1 the last length set), streaming ones
-    from `stream_rows`."""
+    from `stream_rows`, those of a serving tick of BATCH_N streams from
+    `batch_rows` (for K1 the equal lengths)."""
     total = lambda rs, i: sum(r[i] for r in rs)  # noqa: E731
     if name == "banded_rel_attention":
-        rows = rows[-1:]
+        rows, batch_rows = rows[-1:], batch_rows[:1]
     return {"name": name, "route": "cuda",
             "source": "tpu_rvc_torch/csrc/" + ("rel_attention.cu" if name ==
                                                "banded_rel_attention"
                                                else "resblock.cu"),
             "replaces": line,
-            "max_abs_err": max(r[0] for r in rows + stream_rows),
+            "max_abs_err": max(r[0] for r in rows + stream_rows
+                               + batch_rows),
             "ms": total(rows, 1), "plain_ms": total(rows, 2),
             "bound_ms": total(rows, 3), "bound_by": rows[0][4],
             "bound_fp32_fma_ms": total(rows, 5), "math": "3xtf32",
             "library_ms": None, "stream_ms": total(stream_rows, 1),
             "stream_plain_ms": total(stream_rows, 2),
             "stream_bound_ms": total(stream_rows, 3),
-            "stream_bound_by": stream_rows[0][4], **extra}
+            "stream_bound_by": stream_rows[0][4], "batch_n": BATCH_N,
+            "batch_ms": total(batch_rows, 1),
+            "batch_plain_ms": total(batch_rows, 2),
+            "batch_bound_ms": total(batch_rows, 3),
+            "batch_bound_by": batch_rows[0][4],
+            "batch_single_stream_x_n_ms": BATCH_N * total(stream_rows, 1),
+            **extra}
 
 
 def check_kernels():
-    """Phases 2 and 6: every kernel against its plain twin at the offline
-    and at the streaming shapes -> the entries of the `kernels` line."""
+    """Phases 2, 6 and 11: every kernel against its plain twin at the
+    offline shapes, at the streaming shapes and at those of a serving tick
+    of BATCH_N streams -> the entries of the `kernels` line."""
     from tpu_rvc_torch.ops import kernels as kr
     from tpu_rvc_torch.ops.kernels import resblock as rs
 
@@ -242,14 +304,24 @@ def check_kernels():
     s2 = check_stage(rs, g, "fused_stage", STREAM_STAGES, ks, "kernel_stream")
     s3 = check_stage(rs, g, "fused_resblock", [(64, 7200)], (7,),
                      "kernel_stream")
+    # 2 heads a stream: equal lengths (a serving tick), then unequal ones
+    # (an offline batch of utterances)
+    b1 = check_attention(kr, g, STREAM_T, (
+        [STREAM_T] * (2 * BATCH_N), [281, 281, 250, 250, 17, 17, 1, 1] * 2),
+        "kernel_batch")
+    b2 = check_stage(rs, g, "fused_stage", STREAM_STAGES, ks, "kernel_batch",
+                     N=BATCH_N)
+    b3 = check_stage(rs, g, "fused_resblock", [(64, 7200)], (7,),
+                     "kernel_batch", N=BATCH_N)
     return [
         kernel_entry("banded_rel_attention",
-                     "tpu_rvc/ops/pallas/rel_attention.py:75", k1, s1),
+                     "tpu_rvc/ops/pallas/rel_attention.py:75", k1, s1, b1),
         kernel_entry("fused_stage", "tpu_rvc/ops/pallas/resblock.py:163",
-                     k2, s2, per_stage_ms=[r[1] for r in k2],
-                     stream_per_stage_ms=[r[1] for r in s2]),
+                     k2, s2, b2, per_stage_ms=[r[1] for r in k2],
+                     stream_per_stage_ms=[r[1] for r in s2],
+                     batch_per_stage_ms=[r[1] for r in b2]),
         kernel_entry("fused_resblock", "tpu_rvc/ops/pallas/resblock.py:237",
-                     k3, s3)]
+                     k3, s3, b3)]
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +641,7 @@ def device_busy_ms(fn):
     return (total if total > 0 else None), rows[:8]
 
 
-def streaming(tmp, n_warm=3, n_timed=40, n_profiled=4):
+def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.rt import StreamSession
     from tpu_rvc_torch.utils import timing
@@ -696,6 +768,434 @@ def streaming_against_cpu(tmp, n_blocks=8):
                                  f"from host path by {host} > 1e-4")
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: multi-stream serving through SlotScheduler and the TCP server
+# ---------------------------------------------------------------------------
+
+
+def still_clock():
+    """A clock that stands still: no slot ever counts as overdue, so a
+    phase that pauses between ticks (to run its reference) sees no
+    underrun of the wall clock's making."""
+    return 0.0
+
+
+def client_voices(n, seconds, first_seed):
+    return [voice(seconds, seed=first_seed + i, sr=48000) for i in range(n)]
+
+
+def check_blocks(outs, bf, what):
+    for s, out in enumerate(outs):
+        if out.shape != (bf,) or out.dtype != np.float32 or \
+                not np.isfinite(out).all() or np.abs(out).max() == 0:
+            raise AssertionError(f"{what}, slot {s}: {out.dtype} {out.shape} "
+                                 "is not a block of finite, non-zero audio")
+
+
+def lockstep_tick(sched, slots, audios, i, each=None):
+    """Submit block i of every client, one tick, collect: [(slot's audio)]
+    and the tick's wall ms."""
+    bf = sched.block_frame
+    for slot, audio in zip(slots, audios):
+        sched.submit(slot, audio[i * bf: (i + 1) * bf])
+    t0 = time.perf_counter()
+    sched.tick()
+    wall = (time.perf_counter() - t0) * 1e3
+    outs = [sched.collect(slot) for slot in slots]
+    if each is not None:
+        each(i, wall)
+    return outs
+
+
+def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
+    """Phase 12 for one N: serial, then pipelined, on the same audio.
+    Returns the launches of one tick."""
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+    from tpu_rvc_torch.utils import timing
+
+    model = os.path.join(tmp, "v2_48k.pth")
+    engine = stream_engine(model, tmp, "cuda", random_index())
+    n_all = n_warm + n_timed + n_profiled
+    audios = client_voices(n_slots, n_all * 0.25, 20)
+    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    streams = {}
+    for pipelined in (False, True):
+        sched = SlotScheduler(engine, n_slots, f0method="rmvpe",
+                              pipelined=pipelined, **STREAM)
+        bf = sched.block_frame
+        slots = [sched.attach() for _ in range(n_slots)]
+        got = [[] for _ in slots]
+
+        def keep(outs, i):
+            # serial: tick i delivers block i; pipelined: block i - 1
+            expect = bf if (not pipelined or i > 0) else 0
+            for s, out in enumerate(outs):
+                if len(out) != expect:
+                    raise AssertionError(
+                        f"N={n_slots} pipelined={pipelined} tick {i} slot "
+                        f"{s}: {len(out)} samples, expected {expect}")
+                got[s].append(out)
+            if expect:
+                check_blocks(outs, bf, f"N={n_slots} tick {i}")
+
+        keep(lockstep_tick(sched, slots, audios, 0), 0)
+        forbid_host_waits(sched.fused)   # tick 1: the constants are up
+        for i in range(1, n_warm):
+            keep(lockstep_tick(sched, slots, audios, i), i)
+        walls, spans = [], []
+
+        def each(i, wall):
+            walls.append(wall)
+            counts = dict(launch_counts)
+            if counts != want:
+                raise AssertionError(f"N={n_slots} tick {i}: launches "
+                                     f"{counts}, expected {want}")
+            reset_launch_counts()
+            if not pipelined:   # reading the spans waits for the device
+                spans.append(timing.read())
+                timing.enable()
+
+        torch.cuda.synchronize()
+        gc.collect()   # what earlier phases left is not this phase's peak
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        if not pipelined:
+            timing.enable()
+        t_all = time.perf_counter()
+        for i in range(n_warm, n_warm + n_timed):
+            keep(lockstep_tick(sched, slots, audios, i, each), i)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t_all) * 1e3
+        timing.disable()
+        busy, top = None, []
+        if not pipelined:   # the profiler's own start-up costs seconds
+            first = n_warm + n_timed
+            busy, top = device_busy_ms(lambda: [
+                keep(lockstep_tick(sched, slots, audios, i), i)
+                for i in range(first, first + n_profiled)])
+        sched.flush()
+        for s, slot in enumerate(slots):
+            got[s].append(sched.collect(slot))
+        stats = sched.stats()
+        n_ticks = n_all if not pipelined else n_warm + n_timed
+        if stats["underruns"] != [0] * n_slots or \
+                stats["blocks"] != [n_ticks] * n_slots:
+            raise AssertionError(f"N={n_slots} pipelined={pipelined}: "
+                                 f"stats {stats}")
+        streams[pipelined] = [np.concatenate(g)[: (n_warm + n_timed) * bf]
+                              for g in got]
+        split = ({k: float(np.median([sp.get(k, 0.0) for sp in spans]))
+                  for k in spans[-1]} if spans else None)
+        wall = float(np.median(walls))
+        say("serving", mode="pipelined" if pipelined else "serial",
+            slots=n_slots, model="v2/48k random weights", f0method="rmvpe",
+            index_rows=10000, block_s=0.25, ticks=n_timed,
+            tick_wall_ms_median=wall,
+            tick_wall_ms_p90=float(np.percentile(walls, 90)),
+            tick_wall_ms_max=float(np.max(walls)),
+            run_ms_per_tick=run_ms / n_timed,
+            ms_per_stream_block=run_ms / n_timed / n_slots,
+            stage_ms=split,
+            stage_ms_sum=float(sum(split.values())) if split else None,
+            launches_per_tick=want,
+            no_host_wait_between_upload_and_fetch=True,
+            profiled_ticks=n_profiled if busy else 0,
+            device_busy_ms_per_tick=(busy / n_profiled if busy else None),
+            device_busy_share_of_wall=(busy / n_profiled / wall if busy
+                                       else None),
+            top_kernels_ms_per_tick=[
+                [name[:60], ms / n_profiled, calls / n_profiled]
+                for name, ms, calls in top],
+            underruns=stats["underruns"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # the two timed runs drew the same noise (the generator is seeded with
+    # the graph's step), so they differ only by what differs between any
+    # two runs on the card: cuDNN's default algorithm for the decoder's
+    # transposed convolutions adds with atomics.  `pipelined_exact` holds
+    # the two modes sample for sample under cuDNN's deterministic ones.
+    diff = max(float(np.abs(streams[True][s] - streams[False][s]).max())
+               for s in range(n_slots))
+    if not diff <= 1e-5:
+        raise AssertionError(f"N={n_slots}: the pipelined streams differ "
+                             f"from the serial ones by {diff} > 1e-5")
+    say("pipelined_against_serial_timed_runs", slots=n_slots,
+        samples_per_slot=int(streams[True][0].shape[0]), max_abs_diff=diff,
+        limit=1e-5, delivered="one tick later, the last block by flush()")
+    return want
+
+
+def pipelined_exact(tmp, n_slots=4, n_blocks=5):
+    """Pipelined against serial, sample for sample: the same deterministic
+    engine, cuDNN held to its deterministic algorithms for both runs."""
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+
+    engine = stream_engine(os.path.join(tmp, "v2_48k.pth"), tmp, "cuda",
+                           noise_scale=0.0, deterministic=True)
+    audios = client_voices(n_slots, n_blocks * 0.25, 60)
+    pieces = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for pipelined in (False, True):
+            sched = SlotScheduler(engine, n_slots, f0method="rmvpe",
+                                  clock=still_clock, pipelined=pipelined,
+                                  **STREAM)
+            slots = [sched.attach() for _ in range(n_slots)]
+            got = [[] for _ in slots]
+            for i in range(n_blocks):
+                for s, out in enumerate(lockstep_tick(sched, slots, audios,
+                                                      i)):
+                    got[s].append(out)
+            sched.flush()
+            for s, slot in enumerate(slots):
+                got[s].append(sched.collect(slot))
+            pieces[pipelined] = got
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    bf = sched.block_frame
+    for s in range(n_slots):
+        ser, pip = pieces[False][s], pieces[True][s]
+        if [len(x) for x in ser] != [bf] * n_blocks + [0] or \
+                [len(x) for x in pip] != [0] + [bf] * n_blocks:
+            raise AssertionError(f"slot {s}: delivered "
+                                 f"{[len(x) for x in ser]} serial, "
+                                 f"{[len(x) for x in pip]} pipelined")
+        ser, pip = np.concatenate(ser), np.concatenate(pip)
+        if not np.array_equal(pip, ser):
+            raise AssertionError(f"slot {s}: the pipelined stream differs "
+                                 "from the serial one by "
+                                 f"{np.abs(pip - ser).max()}")
+    say("pipelined_exact", slots=n_slots, blocks=n_blocks,
+        sample_exact=True, cudnn_deterministic=True,
+        delivered="one tick later, the last block by flush()")
+
+
+def serving_single_resblock(tmp, n_slots=4, n_ticks=3):
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+
+    sched = SlotScheduler(
+        stream_engine(os.path.join(tmp, "v2_48k_rb1.pth"), tmp, "cuda"),
+        n_slots, f0method="pm", **STREAM)
+    audios = client_voices(n_slots, n_ticks * 0.25, 40)
+    slots = [sched.attach() for _ in range(n_slots)]
+    want = {"banded_rel_attention": 6, "fused_stage": 0, "fused_resblock": 24}
+    walls = []
+
+    def each(i, wall):
+        walls.append(wall)
+        counts = dict(launch_counts)
+        if counts != want:
+            raise AssertionError(f"tick {i}: launches {counts}, expected "
+                                 f"{want}")
+        reset_launch_counts()
+
+    reset_launch_counts()
+    for i in range(n_ticks):
+        check_blocks(lockstep_tick(sched, slots, audios, i, each),
+                     sched.block_frame, f"single-resblock tick {i}")
+    say("serving_single_resblock", slots=n_slots, ticks=n_ticks,
+        f0method="pm", tick_wall_ms=walls, launches_per_tick=want)
+    return want
+
+
+def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2):
+    """Phase 13.  Deterministic engines; the scheduler reads a clock that
+    stands still, since the reference sessions run between its ticks."""
+    from tpu_rvc_torch.pipeline.rt import StreamSession
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+
+    model = os.path.join(tmp, "v2_48k.pth")
+    det = dict(noise_scale=0.0, deterministic=True)
+    kw = dict(f0method="rmvpe", protect=0.33, **STREAM)
+    audios = client_voices(n_slots, (n_blocks + 2) * 0.25, 50)
+    sched = SlotScheduler(stream_engine(model, tmp, "cuda", **det), n_slots,
+                          clock=still_clock, **kw)
+    bf = sched.block_frame
+    slots = [sched.attach() for _ in range(n_slots)]
+    got = [[] for _ in slots]
+    for i in range(n_blocks):
+        outs = lockstep_tick(sched, slots, audios, i)
+        check_blocks(outs, bf, f"tick {i}")
+        for s, out in enumerate(outs):
+            got[s].append(out)
+    got = [np.concatenate(g).astype(np.float64) for g in got]
+
+    # each stream against a StreamSession of its own, fused path
+    engine = stream_engine(model, tmp, "cuda", **det)
+    worst, margins = 0.0, []
+    for s in range(n_slots):
+        sess = StreamSession(engine, fused=True, **kw)
+        watch_sola(sess, margins)
+        own = feed_blocks(sess, audios[s], 0, n_blocks).astype(np.float64)
+        diff = float(np.abs(got[s] - own).max())
+        worst = max(worst, diff)
+        if not diff <= 1e-4:
+            raise AssertionError(f"slot {s} of the {n_slots}-slot scheduler "
+                                 f"differs from its own session by {diff} > "
+                                 "1e-4 of full scale")
+    # the first streams against a scheduler on the CPU
+    cpu = SlotScheduler(stream_engine(model, tmp, "cpu", **det), n_cpu,
+                        clock=still_clock, **kw)
+    cpu_slots = [cpu.attach() for _ in range(n_cpu)]
+    cpu_got = [[] for _ in cpu_slots]
+    for i in range(n_blocks):
+        for s, out in enumerate(lockstep_tick(cpu, cpu_slots, audios, i)):
+            cpu_got[s].append(out)
+    rels = [rel_l2(got[s], np.concatenate(cpu_got[s]).astype(np.float64),
+                   f"scheduler slot {s}") for s in range(n_cpu)]
+    say("streams_against_sessions", slots=n_slots, blocks=n_blocks,
+        f0method="rmvpe", max_abs_vs_own_session=worst, limit=1e-4,
+        sola_margin_min=float(min(margins)), cpu_slots=n_cpu,
+        rel_l2_vs_cpu_scheduler=rels)
+
+    # `fed`: a tick that feeds slots 0 and 3 only
+    before = {k: v.clone() for k, v in sched.state.items()}
+    for slot in (0, 3):
+        sched.submit(slot, audios[slot][n_blocks * bf: (n_blocks + 1) * bf])
+    sched.tick()
+    lens = [len(sched.collect(slot)) for slot in slots]
+    if lens != [bf if s in (0, 3) else 0 for s in range(n_slots)]:
+        raise AssertionError(f"partial tick delivered {lens}")
+    for k, v in sched.state.items():
+        for s in range(n_slots):
+            kept = torch.equal(v[s], before[k][s])
+            if s not in (0, 3) and not kept:
+                raise AssertionError(f"partial tick: state {k}[{s}] of an "
+                                     "unfed stream changed")
+            if s in (0, 3) and k == "wav16" and kept:
+                raise AssertionError(f"partial tick: state {k}[{s}] of a "
+                                     "fed stream did not move")
+    # churn: slot 2's client leaves, a new one takes the slot
+    sched.detach(2)
+    new = sched.attach()
+    if new != 2:
+        raise AssertionError(f"the freed slot is 2, attach gave {new}")
+    newcomer = voice(0.25, seed=70, sr=48000)[:bf]
+    sched.submit(new, newcomer)
+    sched.tick()
+    first = sched.collect(new)
+    fresh = StreamSession(engine, fused=True, **kw).feed(newcomer)
+    churn = float(np.abs(first.astype(np.float64) - fresh).max())
+    if first.shape != (bf,) or not churn <= 1e-4:
+        raise AssertionError(f"a new client's first block differs from a "
+                             f"fresh session's by {churn}")
+    if sched.stats()["underruns"] != [0] * n_slots:
+        raise AssertionError(f"underruns {sched.stats()}")
+    say("fed_and_churn", fed_slots=[0, 3],
+        unfed_state_rows_bit_identical=True, reattached_slot=new,
+        first_block_vs_fresh_session_max_abs=churn)
+
+
+def noise_reduction(tmp, n_blocks=6):
+    """Phase 14: the host path with both denoisers, card against CPU; and
+    the denoiser alone on the card."""
+    from tpu_rvc_torch.audio.torchgate import TorchGate
+    from tpu_rvc_torch.pipeline.rt import StreamSession
+
+    model = os.path.join(tmp, "v2_48k.pth")
+    rng = np.random.default_rng(80)
+    audio = voice(n_blocks * 0.25, seed=81, sr=48000)
+    audio = audio + (0.01 * rng.standard_normal(audio.shape)).astype(
+        np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sess = StreamSession(
+            stream_engine(model, tmp, dev, noise_scale=0.0,
+                          deterministic=True),
+            f0method="rmvpe", protect=0.33, input_noise_reduce=True,
+            output_noise_reduce=True, **STREAM)
+        if sess._fused is not None:
+            raise AssertionError("noise reduction runs on the host path")
+        outs[dev] = feed_blocks(sess, audio, 0, n_blocks).astype(np.float64)
+    rel = rel_l2(outs["cuda"], outs["cpu"], "noise-reduced stream")
+    t = np.arange(48000) / 48000
+    x = (0.4 * np.sin(2 * np.pi * 220 * t) * (t > 0.3)
+         + 0.02 * rng.standard_normal(48000)).astype(np.float32)
+    head = slice(1920, 12000)            # noise only: the noise profile
+    y = TorchGate(48000, n_fft=1920, prop_decrease=0.9)(x, x[:12000])
+    rms = lambda a: float(np.sqrt(np.mean(a ** 2)))  # noqa: E731
+    floor_in, floor_out = rms(x[head]), rms(y[head])
+    tone_in, tone_out = rms(x[24000:]), rms(y[24000:])
+    if y.shape != x.shape or not np.isfinite(y).all() or \
+            not floor_out < 0.25 * floor_in or not tone_out > 0.5 * tone_in:
+        raise AssertionError(f"TorchGate: noise floor {floor_in} -> "
+                             f"{floor_out}, tone rms {tone_in} -> {tone_out}")
+    say("noise_reduction", blocks=n_blocks, f0method="rmvpe",
+        rel_l2_err=rel, max_abs_err=float(np.abs(outs["cuda"]
+                                                 - outs["cpu"]).max()),
+        torchgate_noise_floor_rms=[floor_in, floor_out],
+        torchgate_tone_rms=[tone_in, tone_out])
+
+
+def tcp_loopback(tmp, n_clients=2):
+    """Phase 15.  The scheduler's clock stands still: the clients stream
+    faster than realtime and then wait for their audio, and the pauses of
+    two threads and a socket must not count as underruns."""
+    from tpu_rvc_torch.apps.serve import VCServer, stream_file
+    from tpu_rvc_torch.audio.io import load_wav
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+
+    model = os.path.join(tmp, "v2_48k.pth")
+    sched = SlotScheduler(stream_engine(model, tmp, "cuda", random_index()),
+                          n_clients, f0method="rmvpe", clock=still_clock,
+                          **STREAM)
+    srv = VCServer(("127.0.0.1", 0), sched)
+    port = srv.server_address[1]
+    serve_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve_thread.start()
+    results = {}
+
+    def client(i):
+        try:
+            wav_in = os.path.join(tmp, f"client{i}_in.wav")
+            wav_out = os.path.join(tmp, f"client{i}_out.wav")
+            write_voice(wav_in, 1.0, seed=90 + i)
+            stats = stream_file("127.0.0.1", port, wav_in, wav_out,
+                                timeout=120.0)
+            results[i] = (stats, load_wav(wav_out))
+        except Exception as e:  # handed to the main thread, which raises
+            results[i] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(n_clients)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        serve_thread.join(timeout=30)
+    wall = time.perf_counter() - t0
+    if serve_thread.is_alive() or any(t.is_alive() for t in threads):
+        raise AssertionError("a server or client thread did not end")
+    n_blocks = sched.sr // sched.block_frame   # the wavs are 1 s long
+    deadline = time.perf_counter() + 10   # the handlers detach on "bye"
+    while sched.stats()["active"] and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    for i in range(n_clients):
+        if isinstance(results.get(i), Exception) or i not in results:
+            raise AssertionError(f"client {i}: {results.get(i)!r}")
+        stats, (y, sr) = results[i]
+        if sr != sched.sr or y.shape != (n_blocks * sched.block_frame,) or \
+                not np.isfinite(y).all() or np.abs(y).max() == 0:
+            raise AssertionError(f"client {i}: {sr} Hz, {y.shape}")
+        if stats["underruns"] != [0] * n_clients:
+            raise AssertionError(f"client {i}: stats {stats}")
+    final = sched.stats()
+    if final["blocks"] != [n_blocks] * n_clients or \
+            final["underruns"] != [0] * n_clients or final["active"] != 0:
+        raise AssertionError(f"server stats at the end: {final}")
+    say("tcp_loopback", clients=n_clients, host="127.0.0.1",
+        samples_per_client=n_blocks * sched.block_frame,
+        blocks=final["blocks"], underruns=final["underruns"],
+        ticks=final["ticks"], wall_s=wall, clock="stands still")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -725,11 +1225,22 @@ def main():
         stream_counts = streaming(tmp)
         stream_rb_counts = streaming_single_resblock(tmp)
         streaming_against_cpu(tmp)
+        serve_counts = serving(tmp, BATCH_N, n_warm=3, n_timed=20)
+        for n in (1, 4):
+            if serving(tmp, n, n_warm=3, n_timed=10) != serve_counts:
+                raise AssertionError(f"launches a tick differ at N={n}")
+        serve_rb_counts = serving_single_resblock(tmp)
+        pipelined_exact(tmp)
+        streams_against_sessions(tmp)
+        noise_reduction(tmp)
+        tcp_loopback(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
         e["stream_launches"] = (stream_rb_counts if rb
                                 else stream_counts)[e["name"]]
+        e["batch_launches"] = (serve_rb_counts if rb
+                               else serve_counts)[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -179,6 +179,76 @@ def test_rel_attention_kernel_streaming_window(rng, cuda, lengths):
                                rtol=1e-4, atol=1e-4)
 
 
+# ---------------------------------------------------------------------------
+# the stream axis of the stage kernel: (N, C, T), what the serving path
+# gives it
+# ---------------------------------------------------------------------------
+
+
+def batched_stage_inputs(rng, N, C, T, ks, device):
+    """N streams of similar audio (a common part plus a tenth of their
+    own): a halo row read from a neighbouring stream would be a small
+    error, which bit-for-bit equality still sees."""
+    x, ws, bs = stage_inputs(rng, C, T, ks)
+    own = rng.standard_normal((N, C, T)).astype(np.float32) * 0.03
+    xb = torch.from_numpy(x.T[None] + own).to(device).contiguous()
+    return xb, stage_weights(ws, bs, ks, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 8])
+@pytest.mark.parametrize("C,T", [
+    (256, 360), (128, 3600), (64, 7200), (32, 14400),  # a 30-frame tail
+    (256, 7), (64, 104), (128, 1000),
+    (256, 361), (32, 1001), (64, 7),   # odd T: a stream's base is not
+    (16, 333),                         # 16-byte aligned
+    (256, 127), (256, 129), (64, 255), (64, 257), (32, 256)])  # tile edges
+def test_stage_kernel_stream_axis(rng, cuda, N, C, T):
+    """K2 on (N, C, T): against the batched plain twin (rtol 1e-3, atol
+    1e-4), and bit for bit against the same kernel launched stream by
+    stream (same tiles, same order of sums); 18 launches whatever N."""
+    ks = (3, 7, 11)
+    xb, sw = batched_stage_inputs(rng, N, C, T, ks, cuda)
+    reset_launch_counts()
+    got = fused_stage(xb, sw)
+    assert launch_counts["fused_stage"] == 18
+    assert got.shape == (N, C, T)
+    torch.testing.assert_close(got, stage_plain(xb, sw), rtol=1e-3,
+                               atol=1e-4)
+    one_by_one = torch.stack([fused_stage(xb[n], sw) for n in range(N)])
+    assert torch.equal(got, one_by_one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T", [(1, 7200), (2, 7201), (8, 7200), (8, 104),
+                                 (8, 7)])
+def test_resblock_kernel_stream_axis(rng, cuda, N, T):
+    """K3 (one k = 7 resblock, C = 64) on (N, 64, T): 6 launches."""
+    xb, sw = batched_stage_inputs(rng, N, 64, T, (7,), cuda)
+    reset_launch_counts()
+    got = fused_resblock(xb, sw)
+    assert launch_counts["fused_resblock"] == 6
+    torch.testing.assert_close(got, stage_plain(xb, sw), rtol=1e-3,
+                               atol=1e-4)
+    one_by_one = torch.stack([fused_resblock(xb[n], sw) for n in range(N)])
+    assert torch.equal(got, one_by_one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[281] * 16,
+                                     [281, 281, 250, 250, 17, 17, 1, 1] * 2])
+def test_rel_attention_kernel_sixteen_rows(rng, cuda, lengths):
+    """K1 at (16, 281, 96), eight streams of two heads: equal lengths (the
+    serving tick) and unequal ones (an offline batch).  rtol/atol 1e-4."""
+    q, k, v, ek, ev, lens = attn_inputs(rng, 16, 281, 96, lengths)
+    args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, ek, ev, lens)]
+    reset_launch_counts()
+    got = banded_rel_attention(*args, W)
+    assert launch_counts["banded_rel_attention"] == 1
+    torch.testing.assert_close(got, banded_rel_attention_plain(*args, W),
+                               rtol=1e-4, atol=1e-4)
+
+
 def small_stream_engine(device, **kw):
     """A narrow synthesizer whose decoder stages are widths the kernels
     are built for (64 and 32), a small HuBERT and a tiny RMVPE."""
@@ -277,3 +347,113 @@ def test_train_kmeans_on_the_card(cuda):
     np.testing.assert_allclose(train_kmeans(x, 64, 3, 512, 0, device="cuda"),
                                train_kmeans(x, 64, 3, 512, 0, device="cpu"),
                                rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# multi-stream serving on the card
+# ---------------------------------------------------------------------------
+
+
+def small_voice(n, f0, sr=16000):
+    t = np.arange(n) / sr
+    ph = 2 * np.pi * np.cumsum(f0 + 50 * np.sin(2 * np.pi * 0.8 * t)) / sr
+    return (0.4 * np.sin(ph) + 0.15 * np.sin(2 * ph)).astype(np.float32)
+
+
+def run_scheduler(device, pipelined, n_blocks=5, guard=False, n_slots=2):
+    """Two clients through a small scheduler in lockstep -> per slot the
+    pieces collected after each tick and after flush()."""
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+
+    sched = SlotScheduler(small_stream_engine(device), n_slots,
+                          samplerate=16000, block_time=0.16,
+                          crossfade_time=0.04, extra_time=0.5, f0method="pm",
+                          protect=0.33, clock=lambda: 0.0,
+                          pipelined=pipelined)
+    bf = sched.block_frame
+    audios = [small_voice(n_blocks * bf, 180.0 + 70 * s)
+              for s in range(n_slots)]
+    slots = [sched.attach() for _ in audios]
+    got = [[] for _ in slots]
+    for i in range(n_blocks):
+        if guard and i == 1:  # tick 0 uploads the constants
+            inner = sched.fused._block
+
+            def guarded(*a, inner=inner):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return inner(*a)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            sched.fused._block = guarded
+        for slot, audio in zip(slots, audios):
+            sched.submit(slot, audio[i * bf:(i + 1) * bf])
+        sched.tick()
+        for s, slot in enumerate(slots):
+            got[s].append(sched.collect(slot))
+    sched.flush()
+    for s, slot in enumerate(slots):
+        got[s].append(sched.collect(slot))
+    return got, sched
+
+
+@pytest.mark.cuda
+def test_scheduler_on_the_card(cuda):
+    """A 2-slot scheduler on the card: every tick after the first queues
+    its batched block without one host wait between upload and fetch
+    (PyTorch's sync debug mode set to "error" around it), launches K1 once
+    and K2 24 times a tick whatever the number of streams, keeps its state
+    on the card, and agrees with the scheduler on the CPU (relative L2
+    1e-3)."""
+    reset_launch_counts()
+    got, sched = run_scheduler("cuda", False, guard=True)
+    assert launch_counts["banded_rel_attention"] == 5
+    assert launch_counts["fused_stage"] == 5 * 2 * 12
+    assert sched.state["wav16"].is_cuda
+    assert sched.state["wav16"].shape[0] == 2
+    cpu, _ = run_scheduler("cpu", False)
+    for s in range(2):
+        a, b = np.concatenate(got[s]), np.concatenate(cpu[s])
+        assert a.shape == b.shape == (5 * sched.block_frame,)
+        assert np.isfinite(a).all() and np.abs(a).max() > 1e-3
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-3
+    assert sched.stats()["underruns"] == [0, 0]
+
+
+@pytest.mark.cuda
+def test_pipelined_scheduler_on_the_card(cuda):
+    """pipelined=True on the card (a copy into pinned memory on a side
+    stream, an event waited on before delivery), also under the sync debug
+    mode: serial mode's streams sample for sample, one tick later.  cuDNN
+    is held to its deterministic algorithms for the two runs: its default
+    choice for a transposed convolution adds with atomics, and two runs of
+    one mode then differ in the last bit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ser, sched = run_scheduler("cuda", False)
+        pip, _ = run_scheduler("cuda", True, guard=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    bf = sched.block_frame
+    for s in range(2):
+        assert [len(x) for x in ser[s]] == [bf] * 5 + [0]
+        assert [len(x) for x in pip[s]] == [0] + [bf] * 5
+        np.testing.assert_array_equal(np.concatenate(pip[s]),
+                                      np.concatenate(ser[s]))
+
+
+@pytest.mark.cuda
+def test_torchgate_on_the_card(cuda):
+    """The denoiser on the card against the CPU: atol 1e-5 of full scale
+    (fp32 FFTs in another order)."""
+    from tpu_rvc_torch.audio.torchgate import TorchGate
+
+    rng = np.random.default_rng(5)
+    t = np.arange(16000) / 16000
+    x = (0.4 * np.sin(2 * np.pi * 220 * t) * (t > 0.3)
+         + 0.02 * rng.standard_normal(16000)).astype(np.float32)
+    for kw in (dict(), dict(nonstationary=True)):
+        got = TorchGate(16000, n_fft=640, device="cuda", **kw)(x, x[:4000])
+        want = TorchGate(16000, n_fft=640, device="cpu", **kw)(x, x[:4000])
+        assert np.abs(got - want).max() < 1e-5

@@ -349,16 +349,19 @@ def test_fused_graph_state_and_fetch(world):
 
 
 def test_no_quiet_fallbacks(world, tmp_path):
-    """Noise reduction is not ported and says so; a missing rmvpe.pt raises
-    where the estimator is built (the fused path's construction, the host
-    path's first block) instead of switching path or estimator; fcpe does
-    not turn into pm."""
+    """Noise reduction is a host-path feature: a session with either flag
+    runs there and builds no fused graph, as the JAX session; a missing
+    rmvpe.pt raises where the estimator is built (the fused path's
+    construction, the host path's first block) instead of switching path
+    or estimator; fcpe does not turn into pm."""
     port = rt.RealtimeVC(hubert=world["hub"], synth=world["synth"],
                          rmvpe_root=str(tmp_path), deterministic=True,
                          noise_scale=0.0, device="cpu")
     for kw in (dict(input_noise_reduce=True), dict(output_noise_reduce=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            rt.StreamSession(port, 16000, f0method="pm", **SESSION, **kw)
+        sess = rt.StreamSession(port, 16000, f0method="pm", **SESSION, **kw)
+        assert sess._fused is None and sess._fused_saved is None
+        out = sess.feed(voice(sess.block_frame, seed=12))
+        assert out.shape == (sess.block_frame,) and np.isfinite(out).all()
     with pytest.raises(FileNotFoundError):
         rt.StreamSession(port, 16000, f0method="rmvpe", **SESSION)
     sess = rt.StreamSession(port, 16000, f0method="rmvpe", fused=False,
@@ -395,6 +398,9 @@ def test_new_modules_import_no_jax():
         "import tpu_rvc_torch.f0.rmvpe, tpu_rvc_torch.models.rmvpe\n"
         "import tpu_rvc_torch.ckpt.rmvpe_loader, tpu_rvc_torch.ops.stft\n"
         "import tpu_rvc_torch.ops.mel, tpu_rvc_torch.retrieval.index\n"
+        "import tpu_rvc_torch.audio.torchgate, tpu_rvc_torch.pipeline.serve\n"
+        "import tpu_rvc_torch.pipeline.live, tpu_rvc_torch.apps.serve\n"
+        "import tpu_rvc_torch.audio.native_ring\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tpu_rvc'))\n"
         "assert not bad, bad\n"

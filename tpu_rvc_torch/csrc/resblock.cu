@@ -84,6 +84,15 @@
 // * Tiles: at C = 256, T = 19176 there are 300 tiles for 132 blocks, so
 //   36 SMs do three where the others do two; the other stages have 1498
 //   or 2996 tiles.
+// * A stream axis.  The serving path runs the stage on N streams at once,
+//   (N, C, T) contiguous with the weights shared (under `vmap` the TPU
+//   kernel gets the same axis in its grid).  One launch walks N x tiles(T)
+//   items; an item is (stream, tile), every activation pointer is offset
+//   by stream * C * T, and the [0, T) mask is the stream's own: a halo row
+//   before 0 or past T is zero, never the neighbouring stream's data.  A
+//   stream's tiles, chunks and sums are those of the single-stream launch,
+//   so the two agree bit for bit.  The 16-byte paths need T % 4 == 0, which
+//   also keeps every stream's base aligned as the first one's is.
 // fp32 FMA kernels, cuDNN and library GEMMs are not used.
 
 #include <cuda_runtime.h>
@@ -319,7 +328,8 @@ template <int C>
 __device__ __forceinline__ void produce(const float* __restrict__ in,
                                         uint8_t* smem, uint32_t full,
                                         uint32_t empty, int T, int nitems,
-                                        int pad4, int in_lrelu) {
+                                        int per_stream, int pad4,
+                                        int in_lrelu) {
   using G = Cfg<C>;
   constexpr int U = 4;
   const int p = threadIdx.x - N_CONS;
@@ -332,12 +342,14 @@ __device__ __forceinline__ void produce(const float* __restrict__ in,
   // neighbouring units, so whole warps take every turn of the loops below)
   int it = 0;  // chunks staged so far: ring slot it % S, round it / S
   for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
-    const int t_start = (item / G::MH) * G::BN - pad4;
+    const int sb = item / per_stream;  // the item's stream and tile
+    const int t_start = ((item - sb * per_stream) / G::MH) * G::BN - pad4;
+    const float* in_s = in + (size_t)sb * C * T;
     for (int ch = 0; ch < G::NCH; ++ch, ++it) {
       const int s = it % G::S;
       mbar_wait(empty + 8 * s, ((it / G::S) & 1) ^ 1);
       uint8_t* hi = smem + s * G::STAGE;
-      const float* src = in + (size_t)ch * KC * T;
+      const float* src = in_s + (size_t)ch * KC * T;
       if (vec) {
         int un = u;  // this lane quad's next unit: (channel group, quad)
         for (; un + QUADS * (U - 1) < units; un += QUADS * U)
@@ -438,14 +450,15 @@ template <int C>
 __global__ void __launch_bounds__(NT, 1)
 conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
             const float* __restrict__ bias, const float* __restrict__ res,
-            float* __restrict__ out, float* __restrict__ acc_out, int T,
-            int K, int dil, int in_lrelu, int out_lrelu, int acc_mode,
+            float* __restrict__ out, float* __restrict__ acc_out, int NB,
+            int T, int K, int dil, int in_lrelu, int out_lrelu, int acc_mode,
             float acc_scale) {
   using G = Cfg<C>;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t full = smem_u32(smem + G::S * G::STAGE);
   const uint32_t empty = full + 8 * G::S;
-  const int nitems = (T + G::BN - 1) / G::BN * G::MH;
+  const int per_stream = (T + G::BN - 1) / G::BN * G::MH;
+  const int nitems = NB * per_stream;
   const int pad = (K - 1) / 2 * dil;
   const int pad4 = (pad + 3) & ~3;  // staged rows start at t0 - pad4
 
@@ -460,7 +473,7 @@ conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
 
   if (threadIdx.x >= N_CONS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    produce<C>(in, smem, full, empty, T, nitems, pad4, in_lrelu);
+    produce<C>(in, smem, full, empty, T, nitems, per_stream, pad4, in_lrelu);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
     const int wg = threadIdx.x >> 7;  // this warpgroup's sub-tile
@@ -486,8 +499,9 @@ conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
     uint32_t ah[2][2][4], al[2][2][4];
 
     for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
-      const int t0 = (item / G::MH) * G::BN;
-      const int mt = G::NA == 2 ? 2 * (item % G::MH) + wg : 0;  // its m-tile
+      const int tile = item % per_stream;  // within the item's stream
+      const int t0 = (tile / G::MH) * G::BN;
+      const int mt = G::NA == 2 ? 2 * (tile % G::MH) + wg : 0;  // its m-tile
       // the biases of this thread's two accumulator rows, asked for now and
       // used in the epilogue
       float bco[2];
@@ -555,7 +569,8 @@ conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
       // warp instruction.  So each warp passes its 16 rows through shared
       // memory, 64 columns at a time, with the bias and the activation
       // applied, and `finish_rows` takes them from there in whole 256-byte
-      // rows.
+      // rows.  The pointers move to the item's stream here.
+      const size_t soff = (size_t)(item / per_stream) * C * T;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -576,8 +591,10 @@ conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
         }
         __syncwarp();
         finish_rows<C>(ep + 16 * warp * EP_STRIDE, 64 * mt + 16 * warp,
-                       t0 + noff + 64 * half, lane, T, res, out, acc_out,
-                       acc_mode, acc_scale, vec);
+                       t0 + noff + 64 * half, lane, T,
+                       res ? res + soff : nullptr, out ? out + soff : nullptr,
+                       acc_out ? acc_out + soff : nullptr, acc_mode,
+                       acc_scale, vec);
         __syncwarp();
       }
     }  // items
@@ -586,8 +603,9 @@ conv_kernel(const float* __restrict__ in, const float4* __restrict__ wp,
 
 template <int C>
 int launch(const float* in, const float* wp, const float* b, const float* res,
-           float* out, float* acc_out, int T, int K, int dil, int in_lrelu,
-           int out_lrelu, int acc_mode, float acc_scale, cudaStream_t stream) {
+           float* out, float* acc_out, int N, int T, int K, int dil,
+           int in_lrelu, int out_lrelu, int acc_mode, float acc_scale,
+           cudaStream_t stream) {
   using G = Cfg<C>;
   cudaError_t err = cudaFuncSetAttribute(
       conv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
@@ -600,17 +618,20 @@ int launch(const float* in, const float* wp, const float* b, const float* res,
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  // persistent: one block per SM walks the tiles blockIdx.x, + gridDim.x, ...
-  const int nitems = (T + G::BN - 1) / G::BN * G::MH;
-  conv_kernel<C><<<nitems < n_sm ? nitems : n_sm, NT, G::SMEM, stream>>>(
-      in, reinterpret_cast<const float4*>(wp), b, res, out, acc_out, T, K,
+  // persistent: one block per SM walks the items blockIdx.x, + gridDim.x, ...
+  // of all the streams
+  const long long nitems = (long long)N * ((T + G::BN - 1) / G::BN * G::MH);
+  if (nitems > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  conv_kernel<C><<<nitems < n_sm ? (int)nitems : n_sm, NT, G::SMEM, stream>>>(
+      in, reinterpret_cast<const float4*>(wp), b, res, out, acc_out, N, T, K,
       dil, in_lrelu, out_lrelu, acc_mode, acc_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One same-padded conv of a ResBlock1 chain on (C, T) rows:
+// One same-padded conv of a ResBlock1 chain on N streams of (C, T) rows,
+// (N, C, T) contiguous, each padded on its own length:
 //   y = [lrelu](conv_{K,dil}([lrelu](in)) + b) [+ res]
 // stored into `out` when it is not null; acc_mode 1 stores y * acc_scale
 // into acc_out, 2 adds it.  `wp` holds the (K, C, C) weights in fragment
@@ -622,13 +643,13 @@ int launch(const float* in, const float* wp, const float* b, const float* res,
 #endif
 extern "C" int resblock_conv_3xtf32(const float* in, const float* wp,
                                     const float* b, const float* res,
-                                    float* out, float* acc_out, int C, int T,
-                                    int K, int dil, int in_lrelu,
+                                    float* out, float* acc_out, int N, int C,
+                                    int T, int K, int dil, int in_lrelu,
                                     int out_lrelu, int acc_mode,
                                     float acc_scale, cudaStream_t stream) {
-  if (C != RESBLOCK_C || T < 1 || K < 1 || K % 2 == 0 || dil < 1 ||
+  if (N < 1 || C != RESBLOCK_C || T < 1 || K < 1 || K % 2 == 0 || dil < 1 ||
       (K - 1) / 2 * dil > MAX_PAD)
     return (int)cudaErrorInvalidValue;
-  return launch<RESBLOCK_C>(in, wp, b, res, out, acc_out, T, K, dil, in_lrelu,
-                            out_lrelu, acc_mode, acc_scale, stream);
+  return launch<RESBLOCK_C>(in, wp, b, res, out, acc_out, N, T, K, dil,
+                            in_lrelu, out_lrelu, acc_mode, acc_scale, stream);
 }

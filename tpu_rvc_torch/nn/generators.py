@@ -3,7 +3,8 @@
 Channel-first (B, C, T).  Each upsample level's resblock stage goes through
 `_resblock_stage`: ResBlock1 stages run in the stage kernel
 (ops/kernels/resblock.py, `fused_stage`, or `fused_resblock` for one
-resblock), ResBlock2 stages in plain PyTorch.  The stage weights are
+resblock; the batch goes in whole, as the kernel's stream axis), ResBlock2
+stages in plain PyTorch.  The stage weights are
 relaid for the kernel once per module and device, and the cache is
 dropped when a state_dict is loaded.
 
@@ -79,7 +80,7 @@ class _Decoder(nn.Module):
             self._stage_cache[key] = stage_weights(blocks)
         sw = self._stage_cache[key]
         stage = fused_resblock if len(blocks) == 1 else fused_stage
-        return torch.stack([stage(xb.contiguous(), sw) for xb in x])
+        return stage(x.contiguous(), sw)  # the batch whole, no loop over it
 
 
 class Generator(_Decoder):

@@ -4,8 +4,10 @@ Port of tpu_rvc/ops/pallas/resblock.py: `fused_stage` (the mean of
 n_rb ResBlock1s of one decoder upsample level) and `fused_resblock`
 (one ResBlock1).  Both launch the same kernel, `csrc/resblock.cu`, once
 per conv of the chain: 18 launches for the stock 3-resblock stage, 6 for
-a single resblock.  Activations are channel-first (C, T) rows with
-B = 1.
+a single resblock, whatever the batch.  Activations are channel-first:
+(C, T) for one stream, or (N, C, T) contiguous for N streams that share
+the weights (the serving path: one launch walks every stream's tiles, and
+each stream is padded on its own length, as in N separate calls).
 
 On the H100 the kernel is bound by tensor-core operations at C >= 64 and
 by bytes at C <= 32: every fp32 product runs as three TF32 products
@@ -104,13 +106,14 @@ def stage_weights(resblocks: Sequence[torch.nn.Module]) -> StageWeights:
 
 
 def stage_plain(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
-    """The stage in plain PyTorch: x (C, T) -> mean_r ResBlock1_r(x).
-    F.conv1d zero-pads the true length T, which is the kernel's mask:
-    rows outside [0, T) are zero before every conv, the intermediate
-    included."""
+    """The stage in plain PyTorch: x (C, T) or (N, C, T) -> mean_r
+    ResBlock1_r(x).  F.conv1d zero-pads the true length T of every batch
+    item, which is the kernel's mask: rows outside [0, T) of a stream are
+    zero before every conv, the intermediate included, and no stream sees
+    another's rows."""
     acc = None
     for r, K in enumerate(sw.kernel_sizes):
-        cur = x[None]
+        cur = x[None] if x.dim() == 2 else x
         for m, d in enumerate(sw.dilations):
             w1, w2 = sw.w[r][2 * m], sw.w[r][2 * m + 1]
             b1, b2 = sw.b[r][2 * m], sw.b[r][2 * m + 1]
@@ -121,7 +124,8 @@ def stage_plain(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
             t = F.conv1d(t, w2.permute(1, 2, 0), b2, padding=(K - 1) // 2)
             cur = cur + t
         acc = cur if acc is None else acc + cur
-    return (acc * (1.0 / len(sw.kernel_sizes)))[0]
+    out = acc * (1.0 / len(sw.kernel_sizes))
+    return out[0] if x.dim() == 2 else out
 
 
 def _kernel(C: int):
@@ -129,7 +133,7 @@ def _kernel(C: int):
     if C not in _fns:
         from .build import load
         fn = load(f"resblock_c{C}").resblock_conv_3xtf32
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[C] = fn
@@ -139,10 +143,12 @@ def _kernel(C: int):
 def _check(x: torch.Tensor, sw: StageWeights) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"fused_stage: unsupported device {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+    if x.dtype != torch.float32 or x.dim() not in (2, 3) or \
+            not x.is_contiguous() or x.numel() == 0:
         raise ValueError("fused_stage: x must be a contiguous float32 (C, T) "
-                         f"tensor, got {x.dtype} {tuple(x.shape)}")
-    C = x.shape[0]
+                         f"or (N, C, T) tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    C = x.shape[-2]
     if C not in CHANNELS:
         raise ValueError(f"fused_stage: C={C} must be one of {CHANNELS}")
     for r, K in enumerate(sw.kernel_sizes):
@@ -162,11 +168,12 @@ def _check(x: torch.Tensor, sw: StageWeights) -> None:
 
 
 def _launch(x: torch.Tensor, sw: StageWeights, counter: str) -> torch.Tensor:
-    """Two launches per (resblock, dilation) pair: u = lrelu(conv1(lrelu
-    (x)) + b1), then x + conv2(u) + b2 into the next x and/or the stage
-    output."""
+    """Two launches per (resblock, dilation) pair, each over all the
+    streams of x: u = lrelu(conv1(lrelu(x)) + b1), then x + conv2(u) + b2
+    into the next x and/or the stage output."""
     _check(x, sw)
-    C, T = x.shape
+    C, T = x.shape[-2:]
+    N = 1 if x.dim() == 2 else x.shape[0]
     fn = _kernel(C)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty_like(x)
@@ -177,8 +184,8 @@ def _launch(x: torch.Tensor, sw: StageWeights, counter: str) -> torch.Tensor:
     def conv(src, w, b, res, dst, K, d, in_lrelu, out_lrelu, acc_mode):
         rc = fn(src.data_ptr(), w.data_ptr(), b.data_ptr(),
                 0 if res is None else res.data_ptr(),
-                0 if dst is None else dst.data_ptr(), out.data_ptr(), C, T,
-                K, d, in_lrelu, out_lrelu, acc_mode, 1.0 / n_rb, stream)
+                0 if dst is None else dst.data_ptr(), out.data_ptr(), N, C,
+                T, K, d, in_lrelu, out_lrelu, acc_mode, 1.0 / n_rb, stream)
         if rc != 0:
             raise RuntimeError(f"{counter}: CUDA error {rc}")
         launch_counts[counter] += 1
@@ -197,16 +204,16 @@ def _launch(x: torch.Tensor, sw: StageWeights, counter: str) -> torch.Tensor:
 
 
 def fused_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
-    """mean_r ResBlock1_r(x) for x (C, T).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (two launches per resblock and
-    dilation) or raise."""
+    """mean_r ResBlock1_r(x) for x (C, T) or (N, C, T).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (two launches per
+    resblock and dilation, whatever N) or raise."""
     if x.device.type == "cpu":
         return stage_plain(x, sw)
     return _launch(x, sw, "fused_stage")
 
 
 def fused_resblock(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
-    """One ResBlock1 (the n_rb = 1 stage) for x (C, T)."""
+    """One ResBlock1 (the n_rb = 1 stage) for x (C, T) or (N, C, T)."""
     if len(sw.kernel_sizes) != 1:
         raise ValueError("fused_resblock takes one resblock's weights")
     if x.device.type == "cpu":

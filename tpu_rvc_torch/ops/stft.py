@@ -1,15 +1,20 @@
-"""STFT as the RMVPE mel frontend needs it (port of tpu_rvc/ops/stft.py:
-`hann_window` :25, `frame_signal` :32, `stft` :45).
+"""STFT and inverse STFT (port of tpu_rvc/ops/stft.py: `hann_window` :25,
+`frame_signal` :32, `stft` :45, `istft` :89).
 
 center=False framing of a signal the caller has already padded:
-n_frames = 1 + (T - n_fft) // hop, periodic Hann window, one rFFT per
-frame.  `torch.stft` computes exactly that.
+n_frames = 1 + (T - n_fft) // hop, periodic Hann window (centred in the
+frame when win_length < n_fft), one rFFT per frame.  `torch.stft` computes
+exactly that.  `istft` is the overlap-add of the windowed inverse frames
+divided by the overlap-added squared window; the caller trims.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tpu_rvc_torch.core.device import device_constant
 
@@ -24,8 +29,41 @@ def hann_window(win_length: int, device="cpu") -> torch.Tensor:
     return device_constant(("hann", win_length), make, device)
 
 
-def stft(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+def stft(y: torch.Tensor, n_fft: int, hop: int,
+         win_length: Optional[int] = None) -> torch.Tensor:
     """Complex STFT, center=False.  y: (B, T) -> (B, n_fft//2+1, n_frames)."""
-    return torch.stft(y.float(), n_fft, hop_length=hop, win_length=n_fft,
-                      window=hann_window(n_fft, y.device), center=False,
+    if win_length is None:
+        win_length = n_fft
+    return torch.stft(y.float(), n_fft, hop_length=hop, win_length=win_length,
+                      window=hann_window(win_length, y.device), center=False,
                       return_complex=True)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop: int,
+          win_length: Optional[int] = None,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse STFT: spec (B, F, n_frames) complex -> (B, T) with
+    T = n_fft + hop * (n_frames - 1), or the `length` samples around its
+    centre.  Overlap-add with window-square normalisation (floor 1e-11)."""
+    if win_length is None:
+        win_length = n_fft
+    window = hann_window(win_length, spec.device)
+    if win_length < n_fft:   # centred in the frame, as `torch.stft` has it
+        pad = (n_fft - win_length) // 2
+        window = F.pad(window, (pad, n_fft - win_length - pad))
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    n_frames = frames.shape[1]
+    T = n_fft + hop * (n_frames - 1)
+
+    # overlap-add as a col2im (`F.fold`): no atomics, so the sums come in
+    # the same order in every run
+    def ola(cols):  # (B', n_fft, n_frames) -> (B', T)
+        return F.fold(cols, (1, T), (1, n_fft), stride=(1, hop))[:, 0, 0]
+
+    y = ola(frames.transpose(1, 2))
+    wsq = ola((window * window)[None, :, None].expand(1, n_fft, n_frames))
+    y = y / torch.clamp(wsq, min=1e-11)
+    if length is not None:
+        start = (T - length) // 2 if length < T else 0
+        y = y[:, start:start + length]
+    return y

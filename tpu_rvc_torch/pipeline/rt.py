@@ -1,5 +1,6 @@
-"""Realtime voice conversion, one stream (port of tpu_rvc/pipeline/rt.py;
-reference infer/lib/rtrvc.py:19 `RVC` and the gui.py stream loop math).
+"""Realtime voice conversion, one stream or a batch of streams (port of
+tpu_rvc/pipeline/rt.py; reference infer/lib/rtrvc.py:19 `RVC` and the
+gui.py stream loop math).
 
 RealtimeVC: the per-block model engine (rtrvc.RVC role).
   - persistent HuBERT and synthesizer on the device, 1024-frame pitch
@@ -11,17 +12,24 @@ RealtimeVC: the per-block model engine (rtrvc.RVC role).
   - per block: HuBERT on the whole window, enc_p on the whole window, the
     flow on the tail plus a 24-frame pre-roll, the decoder on the tail.
 
+BatchedRealtimeVC: the same engine for N streams at once: per-stream
+  pitch caches, one batched `convert_window` (where the JAX package has
+  `vmap` the port has a batch axis: HuBERT, retrieval, the synthesizer and
+  both kernels take the N streams in one call each).
+
 StreamSession: the block loop (gui.py:934-1126 math, no audio device):
-  rolling input windows, 16 kHz resample, the engine, RMS mix, SOLA
-  alignment (normalised cross-correlation, gui.py:1058-1073) and crossfade
-  or phase-vocoder merge (gui.py:27-48).  Blocks in, aligned blocks out.
+  rolling input windows, spectral-gate noise reduction of the input and
+  the output (audio/torchgate.py), 16 kHz resample, the engine, RMS mix,
+  SOLA alignment (normalised cross-correlation, gui.py:1058-1073) and
+  crossfade or phase-vocoder merge (gui.py:27-48).  Blocks in, aligned
+  blocks out.
 
 FusedStreamGraph: the same block with its rolling state (16 kHz window,
 pitch caches) on the device: one upload of the fresh segment, every stage
-queued without waiting for the device, one fetch.
-
-Spectral-gate noise reduction, the multi-stream engine and the per-stream
-`fed` mask are not ported yet.
+queued without waiting for the device, one fetch.  With `n_streams=N` the
+state, the segment and the output carry a leading stream axis, and a
+per-stream `fed` mask freezes the state of streams that got no block
+(pipeline/serve.py `SlotScheduler` drives it).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from tpu_rvc_torch.audio.dsp import _interp_to, rms_envelope
+from tpu_rvc_torch.audio.torchgate import TorchGate
 from tpu_rvc_torch.core.device import fp32_math, resolve_device
 from tpu_rvc_torch.f0.device import pm_f0_device, rmvpe_f0_device
 from tpu_rvc_torch.f0.gen import Generator as F0Generator
@@ -82,8 +91,8 @@ class RealtimeVC:
         self.cache_pitchf = np.zeros(CACHE_FRAMES, np.float32)
         self.f0_gen = F0Generator(rmvpe_root, x_pad=0, window=WINDOW, sr=SR,
                                   device=self.device)
-        self._sid = torch.zeros(1, dtype=torch.int64, device=self.device)
-        self._lengths: Dict[int, torch.Tensor] = {}
+        self._batch: Dict[Tuple[int, int], Tuple[torch.Tensor,
+                                                 torch.Tensor]] = {}
         self._step = 0
 
     def set_key(self, key):          # reference rtrvc.py:122
@@ -101,50 +110,61 @@ class RealtimeVC:
             return None
         return self.index.device_arrays(self.device)
 
-    def _length_tensor(self, p_len: int) -> torch.Tensor:
-        # made once per window length: a fresh host-to-device copy in every
-        # block would make the host wait for the device mid-block
-        if p_len not in self._lengths:
-            self._lengths[p_len] = torch.full(
-                (1,), p_len, dtype=torch.int64, device=self.device)
-        return self._lengths[p_len]
+    def _lengths_and_sid(self, n: int, p_len: int):
+        # made once per batch size and window length: a fresh host-to-device
+        # copy in every block would make the host wait for the device
+        # mid-block
+        if (n, p_len) not in self._batch:
+            self._batch[n, p_len] = (
+                torch.full((n,), p_len, dtype=torch.int64,
+                           device=self.device),
+                torch.zeros(n, dtype=torch.int64, device=self.device))
+        return self._batch[n, p_len]
 
     def convert_window(self, wav16: torch.Tensor, pitch, pitchf,
                        skip_head: int, return_length: int,
                        return_length2: int, protect: float,
                        step: int) -> torch.Tensor:
-        """One rolling window on the device -> the tail's audio at the
-        model's rate, (return_length2 * hop,).  wav16: (L16,); pitch /
-        pitchf: (L16 // 160,) or None.  The prior and source noise come
-        from a generator seeded with `step`.  Queues work only: nothing
-        here waits for the device."""
-        p_len = wav16.shape[0] // WINDOW
+        """One rolling window of one stream or of N on the device -> the
+        tail's audio at the model's rate.  wav16: (L16,) or (N, L16);
+        pitch / pitchf: (L16 // 160,) or (N, L16 // 160), or None; returns
+        (return_length2 * hop,) or (N, return_length2 * hop).  The N
+        streams share the weights, the index and the settings and go
+        through every stage as one batch.  The prior and source noise are
+        one draw of the batch's shape from a generator seeded with `step`,
+        so streams differ.  Queues work only: nothing here waits for the
+        device."""
+        single = wav16.dim() == 1
         use_f0 = pitch is not None
+        if single:
+            wav16 = wav16[None]
+            pitch, pitchf = (pitch[None], pitchf[None]) if use_f0 else (
+                None, None)
+        n, p_len = wav16.shape[0], wav16.shape[1] // WINDOW
         with span("hubert", self.device):
-            feats = self.hubert(wav16[None])
+            feats = self.hubert(wav16)
         feats = torch.cat([feats, feats[:, -1:]], dim=1)
         feats0 = feats
         index_arrays = self.index_arrays()
         if index_arrays is not None:
             with span("retrieval", self.device):
                 head = skip_head // 2
-                blended = knn_blend(feats[0, head:], *index_arrays,
+                blended = knn_blend(feats[:, head:], *index_arrays,
                                     self.index_rate)
-                feats = torch.cat([feats[:, :head], blended[None]], dim=1)
+                feats = torch.cat([feats[:, :head], blended], dim=1)
         feats = torch.repeat_interleave(feats, 2, dim=1)[:, :p_len]
         if use_f0 and protect < 0.5:
             feats0 = torch.repeat_interleave(feats0, 2, dim=1)[:, :p_len]
-            pitchff = torch.where(pitchf > 0, 1.0, protect)[None, :, None]
+            pitchff = torch.where(pitchf > 0, 1.0, protect)[:, :, None]
             feats = feats * pitchff + feats0 * (1 - pitchff)
         generator = torch.Generator(device=self.device).manual_seed(int(step))
+        lengths, sid = self._lengths_and_sid(n, p_len)
         audio = self.synth.infer(
-            feats, self._length_tensor(p_len), self._sid,
-            pitch[None] if use_f0 else None,
-            pitchf[None] if use_f0 else None,
+            feats, lengths, sid, pitch, pitchf,
             skip_head=skip_head, return_length=return_length,
             return_length2=return_length2, noise_scale=self.noise_scale,
             deterministic=self.deterministic, generator=generator)
-        return audio[0, :, 0]
+        return audio[0, :, 0] if single else audio[:, :, 0]
 
     @torch.no_grad()
     @fp32_math()
@@ -154,48 +174,94 @@ class RealtimeVC:
               protect: float = 1.0) -> np.ndarray:
         """Convert one rolling window; returns target-rate audio of
         return_length frames (reference rtrvc.RVC.infer, rtrvc.py:134)."""
-        input_wav = np.asarray(input_wav, np.float32)
-        p_len = len(input_wav) // WINDOW
+        return self._infer(np.asarray(input_wav, np.float32)[None],
+                           block_frame_16k, skip_head, return_length,
+                           f0method, protect)[0]
+
+    def _infer(self, wavs: np.ndarray, block_frame_16k: int, skip_head: int,
+               return_length: int, f0method: Union[tuple, str],
+               protect: float) -> np.ndarray:
+        """The host block path for a batch: wavs (N, L16) -> (N, samples).
+        f0 comes stream by stream from the host estimator into the
+        streams' own pitch caches (rows of `cache_pitch`/`cache_pitchf`);
+        everything after it is one batched call."""
+        n, p_len = wavs.shape[0], wavs.shape[1] // WINDOW
         factor = 2.0 ** (self.formant_shift / 12)
         return_length2 = int(np.ceil(return_length * factor))
         use_f0 = self.if_f0 == 1
+        cache_pitch = self.cache_pitch.reshape(n, CACHE_FRAMES)    # views
+        cache_pitchf = self.cache_pitchf.reshape(n, CACHE_FRAMES)
 
-        pitch = np.zeros(p_len, np.int32)
-        pitchf = np.zeros(p_len, np.float32)
+        pitch = np.zeros((n, p_len), np.int32)
+        pitchf = np.zeros((n, p_len), np.float32)
         if isinstance(f0method, tuple):
-            pitch_t, pitchf_t = f0method
-            pitch[:len(pitch_t)] = pitch_t[:p_len]
-            pitchf[:len(pitchf_t)] = pitchf_t[:p_len]
+            pitch_t, pitchf_t = (np.asarray(a) for a in f0method)
+            pitch[:, :pitch_t.shape[-1]] = pitch_t[..., :p_len]
+            pitchf[:, :pitchf_t.shape[-1]] = pitchf_t[..., :p_len]
         elif use_f0:
             # f0 on the tail only, rolled into the 1024-frame caches
             tail = f0_tail_samples(block_frame_16k, f0method)
-            with span("f0", self.device):
-                c, f = self.f0_gen.calculate(
-                    input_wav[-tail:], None,
-                    self.f0_up_key - self.formant_shift, f0method)
             shift = block_frame_16k // WINDOW
-            self.cache_pitch[:-shift] = self.cache_pitch[shift:]
-            self.cache_pitchf[:-shift] = self.cache_pitchf[shift:]
-            n_new = len(c) - 4  # drop 3 head + 1 tail frames (rtrvc.py:212)
-            self.cache_pitch[-n_new:] = c[3:-1]
-            self.cache_pitchf[-n_new:] = f[3:-1]
-            pitch = self.cache_pitch[-p_len:].astype(np.int32)
-            pitchf = (self.cache_pitchf[-p_len:] *
+            with span("f0", self.device):
+                for b in range(n):
+                    c, f = self.f0_gen.calculate(
+                        wavs[b, -tail:], None,
+                        self.f0_up_key - self.formant_shift, f0method)
+                    cache_pitch[b, :-shift] = cache_pitch[b, shift:]
+                    cache_pitchf[b, :-shift] = cache_pitchf[b, shift:]
+                    n_new = len(c) - 4  # drop 3 head + 1 tail (rtrvc.py:212)
+                    cache_pitch[b, -n_new:] = c[3:-1]
+                    cache_pitchf[b, -n_new:] = f[3:-1]
+            pitch = cache_pitch[:, -p_len:].astype(np.int32)
+            pitchf = (cache_pitchf[:, -p_len:] *
                       (return_length2 / return_length)).astype(np.float32)
 
         self._step += 1
         dev = self.device
         out = self.convert_window(
-            torch.from_numpy(input_wav).to(dev),
+            torch.from_numpy(wavs).to(dev),
             torch.from_numpy(pitch).to(dev) if use_f0 else None,
             torch.from_numpy(pitchf).to(dev) if use_f0 else None,
             skip_head, return_length, return_length2, protect, self._step)
         # formant-shift output resample (rtrvc.py:249-259)
         upp_res = int(np.floor(factor * self.tgt_sr // 100))
         if upp_res != self.tgt_sr // 100:
-            out = resample_poly(out[None, : return_length * upp_res],
-                                upp_res * 100, self.tgt_sr)[0]
+            out = resample_poly(out[:, : return_length * upp_res],
+                                upp_res * 100, self.tgt_sr)
         return out.cpu().numpy()
+
+
+class BatchedRealtimeVC(RealtimeVC):
+    """N concurrent streaming sessions served by one engine (port of
+    tpu_rvc/pipeline/rt.py:200-303): every stage of the block runs once on
+    a batch of N windows.  A serving extension beyond the reference, whose
+    realtime engine is single-stream (rtrvc.py:19).  Pitch caches and noise
+    are per stream; the weights, the retrieval index and the conversion
+    settings are shared."""
+
+    def __init__(self, n_streams: int, **kw):
+        super().__init__(**kw)
+        self.n_streams = int(n_streams)
+        self.cache_pitch = np.zeros((self.n_streams, CACHE_FRAMES), np.int32)
+        self.cache_pitchf = np.zeros((self.n_streams, CACHE_FRAMES),
+                                     np.float32)
+
+    @torch.no_grad()
+    @fp32_math()
+    def infer(self, input_wavs: np.ndarray, block_frame_16k: int,
+              skip_head: int, return_length: int,
+              f0method: Union[tuple, str] = "pm",
+              protect: float = 1.0) -> np.ndarray:
+        """Convert one rolling window for every stream.
+        input_wavs: (n_streams, L16) -> (n_streams, samples).  A
+        (pitch, pitchf) tuple as `f0method` may be one track for all
+        streams or (n_streams, frames)."""
+        input_wavs = np.asarray(input_wavs, np.float32)
+        if input_wavs.ndim != 2 or input_wavs.shape[0] != self.n_streams:
+            raise ValueError(f"input_wavs must be ({self.n_streams}, L16), "
+                             f"got {input_wavs.shape}")
+        return self._infer(input_wavs, block_frame_16k, skip_head,
+                           return_length, f0method, protect)
 
 
 def phase_vocoder(a: np.ndarray, b: np.ndarray, fade_out: np.ndarray,
@@ -254,7 +320,9 @@ class StreamSession:
     `samplerate`.  `fused=True` takes the FusedStreamGraph path while the
     configuration allows it (no formant shift, no RMS mix) and raises if
     that path cannot be built; `fused=False` asks for the host block
-    path."""
+    path.  Noise reduction (`input_noise_reduce`, `output_noise_reduce`)
+    is the host path's: with either flag the session runs there, as the
+    JAX session does."""
 
     def __init__(self, engine: RealtimeVC, samplerate: int = 48000,
                  block_time: float = 0.25, crossfade_time: float = 0.05,
@@ -264,11 +332,6 @@ class StreamSession:
                  input_noise_reduce: bool = False,
                  output_noise_reduce: bool = False,
                  fused: bool = True):
-        if input_noise_reduce or output_noise_reduce:
-            raise NotImplementedError(
-                "spectral-gate noise reduction is not ported to "
-                "tpu_rvc_torch yet (ROADMAP.md queue A: 'Serving slice', "
-                "audio/torchgate.py)")
         self.engine = engine
         geo = BlockGeometry(samplerate, block_time, crossfade_time,
                             extra_time)
@@ -295,10 +358,20 @@ class StreamSession:
         self.return_length = geo.return_length
         # the engine's rate must be brought to the stream's (gui resampler2)
         self._out_resample = (self.engine.tgt_sr != samplerate)
+        # spectral-gate denoisers (gui.py I/O_noise_reduce paths)
+        self.input_noise_reduce = bool(input_noise_reduce)
+        self.output_noise_reduce = bool(output_noise_reduce)
+        noise_reduce = self.input_noise_reduce or self.output_noise_reduce
+        if noise_reduce:
+            self._tg = TorchGate(sr=samplerate, n_fft=4 * self.zc,
+                                 prop_decrease=0.9, device=engine.device)
+            self.input_wav_denoise = self.input_wav.copy()
+            self.nr_buffer = np.zeros(self.sola_buffer_frame, np.float32)
+            self.output_buffer = np.zeros(geo.total, np.float32)
         self._fused = None
         self._fused_saved = None  # parked while a slider rules it out
         self._fused_state = None
-        if fused and engine.if_f0 in (0, 1):
+        if fused and engine.if_f0 in (0, 1) and not noise_reduce:
             self._fused_saved = FusedStreamGraph(
                 engine, stream_sr=samplerate, block_frame=self.block_frame,
                 ctx_frame=2 * self.zc, total_len=geo.total,
@@ -375,13 +448,31 @@ class StreamSession:
         self.input_wav[:-self.block_frame] = self.input_wav[self.block_frame:]
         self.input_wav[-self.block_frame:] = block
         # the freshest audio with one extra zc of context (gui.py:997)
-        seg = self.input_wav[-self.block_frame - 2 * self.zc:]
+        n_seg = self.block_frame + 2 * self.zc
         if self._fused is not None:
-            infer_wav, self._fused_state = self._fused(self._fused_state, seg)
+            infer_wav, self._fused_state = self._fused(
+                self._fused_state, self.input_wav[-n_seg:])
             return self._merge_block(infer_wav)
         self.input_wav_res[:-self.block_frame_16k] = \
             self.input_wav_res[self.block_frame_16k:]
-        res = self._resample(seg, self.sr, SR).cpu().numpy()
+        source_wav = self.input_wav
+        if self.input_noise_reduce:
+            # denoise the fresh block against the whole window's noise
+            # profile, crossfaded with the previous tail (gui.py:978-992)
+            self.input_wav_denoise[:-self.block_frame] = \
+                self.input_wav_denoise[self.block_frame:]
+            den = self._tg(self.input_wav[-self.sola_buffer_frame -
+                                          self.block_frame:].copy(),
+                           self.input_wav).astype(np.float32)
+            den[: self.sola_buffer_frame] *= self.fade_in_window
+            den[: self.sola_buffer_frame] += (self.nr_buffer *
+                                              self.fade_out_window)
+            self.input_wav_denoise[-self.block_frame:] = \
+                den[: self.block_frame]
+            self.nr_buffer[:] = den[self.block_frame:
+                                    self.block_frame + self.sola_buffer_frame]
+            source_wav = self.input_wav_denoise
+        res = self._resample(source_wav[-n_seg:], self.sr, SR).cpu().numpy()
         self.input_wav_res[-self.block_frame_16k - 160:] = \
             res[160: 160 + self.block_frame_16k + 160]
 
@@ -391,6 +482,15 @@ class StreamSession:
         if self._out_resample:
             infer_wav = self._resample(infer_wav, self.engine.tgt_sr,
                                        self.sr).cpu().numpy()
+        if self.output_noise_reduce:
+            # the rolling output buffer is the noise profile
+            # (gui.py:1017-1026)
+            self.output_buffer[:-self.block_frame] = \
+                self.output_buffer[self.block_frame:]
+            n_new = min(self.block_frame, len(infer_wav))
+            self.output_buffer[-n_new:] = infer_wav[-n_new:]
+            infer_wav = self._tg(infer_wav.astype(np.float32),
+                                 self.output_buffer).astype(np.float32)
         need = (self.block_frame + self.sola_buffer_frame +
                 self.sola_search_frame)
         if len(infer_wav) < need:
@@ -455,7 +555,7 @@ def sola_merge(infer_wav: np.ndarray, sola_buffer: np.ndarray,
 
 class FusedStreamGraph:
     """One streaming block with its state on the device (the
-    latency-critical path), single stream.
+    latency-critical path), for one stream or for `n_streams`.
 
     Per block: upload the fresh stream-rate segment; on the device
     resample it to 16 kHz, roll the 16 kHz window, f0 on the tail, roll
@@ -465,13 +565,25 @@ class FusedStreamGraph:
     upload and the fetch the host only queues work.  The state dict is
     taken and returned; the returned one shares no memory with the
     argument.  SOLA stays on the host, which has the fetched audio anyway.
+
+    With `n_streams = N > 1` (multi-stream serving: one call advances every
+    session) the state tensors, the segment and the output carry a leading
+    stream axis; the weights, the index and the settings are shared.  A
+    `fed` mask (N,) says which streams got a block: a stream with `fed`
+    false keeps its state exactly, and its output row is whatever falls
+    out of the batch (the caller discards it).  Where the JAX class folds
+    the stream index into the step's noise key, the port draws one
+    (N, ...) tensor from the step's generator: streams differ from each
+    other, and stream 0 of a batch does not repeat the single-stream
+    draw.  With N = 1 the state and the call are unbatched.
     """
 
     def __init__(self, engine: RealtimeVC, *, stream_sr: int,
                  block_frame: int, ctx_frame: int, total_len: int,
                  skip_head: int, return_length: int, f0method: str = "pm",
-                 protect: float = 1.0):
+                 protect: float = 1.0, n_streams: int = 1):
         self.engine = engine
+        self.n_streams = int(n_streams)
         self.stream_sr = stream_sr
         self.block_frame = block_frame          # stream-rate samples
         self.ctx_frame = ctx_frame              # extra context uploaded
@@ -491,27 +603,34 @@ class FusedStreamGraph:
             if f0method == "rmvpe":
                 self._f0_model = est.model
         self._step = 0
+        self._staging: Dict[str, Tuple[torch.Tensor, object]] = {}
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         dev = self.engine.device
+        lead = () if self.n_streams == 1 else (self.n_streams,)
         return {
-            "wav16": torch.zeros(self.total_16k, dtype=torch.float32,
-                                 device=dev),
-            "cache_pitch": torch.zeros(CACHE_FRAMES, dtype=torch.int32,
-                                       device=dev),
-            "cache_pitchf": torch.zeros(CACHE_FRAMES, dtype=torch.float32,
-                                        device=dev),
+            "wav16": torch.zeros(lead + (self.total_16k,),
+                                 dtype=torch.float32, device=dev),
+            "cache_pitch": torch.zeros(lead + (CACHE_FRAMES,),
+                                       dtype=torch.int32, device=dev),
+            "cache_pitchf": torch.zeros(lead + (CACHE_FRAMES,),
+                                        dtype=torch.float32, device=dev),
         }
 
-    def _block(self, state, seg: torch.Tensor, step: int):
-        """The device side of one block; queues work only."""
+    def _block(self, state, seg: torch.Tensor, fed, step: int):
+        """The device side of one block; queues work only.  Written for a
+        batch: a single stream is a batch of one here."""
         eng = self.engine
+        single = self.n_streams == 1
+        if single:
+            state = {k: v[None] for k, v in state.items()}
+            seg = seg[None]
         # 1. the fresh segment at 16 kHz, appended to the rolled window
-        seg16 = resample_poly(seg[None], self.stream_sr, SR)[0]
+        seg16 = resample_poly(seg, self.stream_sr, SR)
         n_new = self.block_16k + 160
         wav16 = torch.cat([
-            state["wav16"][self.block_16k: self.total_16k - 160],
-            seg16[160: 160 + n_new]])
+            state["wav16"][:, self.block_16k: self.total_16k - 160],
+            seg16[:, 160: 160 + n_new]], dim=1)
 
         # 2. f0 on the tail, rolled into the pitch caches
         if self.use_f0:
@@ -519,19 +638,18 @@ class FusedStreamGraph:
                        self.total_16k)
             with span("f0", eng.device):
                 if self.f0method == "rmvpe":
-                    c, f = rmvpe_f0_device(wav16[-tail:], tail // WINDOW,
+                    c, f = rmvpe_f0_device(wav16[:, -tail:], tail // WINDOW,
                                            eng.f0_up_key, self._f0_model)
                 else:
-                    c, f = pm_f0_device(wav16[-tail:], tail // WINDOW,
+                    c, f = pm_f0_device(wav16[:, -tail:], tail // WINDOW,
                                         eng.f0_up_key)
             shift = self.block_16k // WINDOW
-            n_keep = c.shape[0] - 4   # drop 3 head + 1 tail frames
-            cache_pitch = torch.cat([
-                state["cache_pitch"][shift: CACHE_FRAMES - n_keep + shift],
-                c[3:-1]])
-            cache_pitchf = torch.cat([
-                state["cache_pitchf"][shift: CACHE_FRAMES - n_keep + shift],
-                f[3:-1]])
+            n_keep = c.shape[1] - 4   # drop 3 head + 1 tail frames
+            keep = slice(shift, CACHE_FRAMES - n_keep + shift)
+            cache_pitch = torch.cat([state["cache_pitch"][:, keep],
+                                     c[:, 3:-1]], dim=1)
+            cache_pitchf = torch.cat([state["cache_pitchf"][:, keep],
+                                      f[:, 3:-1]], dim=1)
         else:
             cache_pitch = state["cache_pitch"].clone()
             cache_pitchf = state["cache_pitchf"].clone()
@@ -539,25 +657,61 @@ class FusedStreamGraph:
 
         # 3. HuBERT on the window, tail retrieval, the synthesizer
         out = eng.convert_window(
-            wav16, cache_pitch[-p_len:] if self.use_f0 else None,
-            cache_pitchf[-p_len:] if self.use_f0 else None,
+            wav16, cache_pitch[:, -p_len:] if self.use_f0 else None,
+            cache_pitchf[:, -p_len:] if self.use_f0 else None,
             self.skip_head, self.return_length, self.return_length,
             self.protect, step)
         # 4. to the stream rate
         if eng.tgt_sr != self.stream_sr:
-            out = resample_poly(out[None], eng.tgt_sr, self.stream_sr)[0]
-        return out, {"wav16": wav16, "cache_pitch": cache_pitch,
+            out = resample_poly(out, eng.tgt_sr, self.stream_sr)
+        new_state = {"wav16": wav16, "cache_pitch": cache_pitch,
                      "cache_pitchf": cache_pitchf}
+        if fed is not None:
+            # a stream that got no block keeps its state exactly
+            new_state = {k: torch.where(fed[:, None], v, state[k])
+                         for k, v in new_state.items()}
+        if single:
+            out, new_state = out[0], {k: v[0] for k, v in new_state.items()}
+        return out, new_state
+
+    def _upload(self, name: str, host: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor.  On a card the copy goes through a
+        pinned staging buffer kept per `name` and does not wait for the
+        work already queued (a copy from pageable memory would), so a
+        caller that left the last block's output on the device can prepare
+        and queue the next block while that one still runs."""
+        dev = self.engine.device
+        src = torch.from_numpy(host)
+        if dev.type != "cuda":
+            return src.to(dev)
+        slot = self._staging.get(name)
+        if slot is None or slot[0].shape != src.shape \
+                or slot[0].dtype != src.dtype:
+            slot = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
+                    torch.cuda.Event())
+            self._staging[name] = slot
+        buf, copied = slot
+        copied.synchronize()   # the buffer's last copy has left it
+        buf.copy_(src)
+        out = buf.to(dev, non_blocking=True)
+        copied.record()
+        return out
 
     @torch.no_grad()
     @fp32_math()
-    def __call__(self, state, seg: np.ndarray, fetch: bool = True):
-        """state, fresh segment (block_frame + ctx_frame stream-rate
-        samples) -> (audio, new state).  fetch=False leaves the audio on
-        the device, for a caller that overlaps the fetch with the next
-        block."""
+    def __call__(self, state, seg: np.ndarray, fed=None, fetch: bool = True):
+        """state, fresh segment -> (audio, new state).  seg: block_frame +
+        ctx_frame stream-rate samples, (n_streams, ...) for a batch; fed:
+        None (every stream got a block), or a bool per stream (one bool
+        for a single stream).  The segment and the mask are the call's
+        only host-to-device copies.  fetch=False leaves the audio on the
+        device, for a caller that overlaps the fetch with the next block."""
         self._step += 1
-        seg_dev = torch.from_numpy(
-            np.ascontiguousarray(seg, np.float32)).to(self.engine.device)
-        out, new_state = self._block(state, seg_dev, self._step)
+        seg_dev = self._upload("seg", np.ascontiguousarray(seg, np.float32))
+        fed_dev = None
+        if self.n_streams > 1 and fed is not None:
+            fed_dev = self._upload("fed", np.ascontiguousarray(fed, bool))
+        out, new_state = self._block(state, seg_dev, fed_dev, self._step)
+        if self.n_streams == 1 and fed is not None and not fed:
+            new_state = {k: v.clone() for k, v in state.items()}
         return (out.cpu().numpy() if fetch else out), new_state

@@ -58,11 +58,11 @@ def probe_convs(g):
             w = torch.randn(K, C, C, generator=g, device="cuda")
             wp = rs.pack_conv_weight(w / math.sqrt(K * C))
             first = lambda: fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),  # noqa: E731
-                               0, out.data_ptr(), acc.data_ptr(), C, T, K, 1,
-                               1, 1, 0, 1.0, stream)
+                               0, out.data_ptr(), acc.data_ptr(), 1, C, T, K,
+                               1, 1, 1, 0, 1.0, stream)
             second = lambda: fn(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),  # noqa: E731
                                 res.data_ptr(), out.data_ptr(),
-                                acc.data_ptr(), C, T, K, 1, 0, 0, 2, 1.0,
+                                acc.data_ptr(), 1, C, T, K, 1, 0, 0, 2, 1.0,
                                 stream)
             ms[K] = (median_ms(first), median_ms(second))
         per_tap = (ms[11][0] - ms[3][0]) / 8
