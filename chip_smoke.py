@@ -33,7 +33,8 @@ Phases, one line of output each (any failure exits non-zero):
      upload and the fetch), then 20 blocks: wall ms, per-stage CUDA-event
      ms and launches per block, and from torch.profiler over 4 more
      blocks the device's busy ms a block (its share of the median wall of
-     the 20 unprofiled blocks); the same 20 blocks with fused=False;
+     the 20 unprofiled blocks); the same 20 blocks with fused=False; the
+     host µs a block spends keying the decoder's stage-weight cache;
   9. streaming on the single-resblock model: 5 blocks;
  10. streaming on the card against the CPU, deterministic, 8 blocks, pm
      and rmvpe (relative L2 < 1e-3), and fused against host path on the
@@ -67,6 +68,27 @@ Phases, one line of output each (any failure exits non-zero):
  15. the TCP server on 127.0.0.1, an ephemeral port, two `stream_file`
      clients in threads with 1 s wavs (the scheduler reads a clock that
      stands still, so that no wall-clock pause counts as an underrun);
+ T1. training data: 16 synthetic 4 s voices at 48 kHz through
+     `apps/train.py`'s preprocess, extract (RMVPE from the random-weight
+     `rmvpe.pt`, HuBERT-base from a seed, on the card) and index, then the
+     filelist (16 rows and 2 mute rows);
+ T2. GAN training at v2/48k full width (batch 4, segment 17280, bf16 as
+     the preset says): `run_training` for 3 epochs with a checkpoint each,
+     then resumed for a 4th; no K1/K2/K3 launch; on the state of epoch 4 a
+     gradient in enc_p's attention and every resblock, then 3 warm-up + 12
+     steps timed one by one on the host clock after a synchronize (median,
+     p90, max, samples a second), CUDA-event spans `g_forward`, `d_step`,
+     `g_step`, the host's batch time, peak memory, the device's busy share
+     and top kernels over 3 more steps (torch.profiler); the live G's
+     `infer` (its stage cache filled before the optimizer moved its
+     weights in place) against its `G_*.pth` reloaded (1e-5 of full
+     scale);
+ T3. one pinned fp32 step (TF32 off) at full width, batch 2 in a 200-frame
+     bucket, on the card against the CPU: loss terms within 1e-3
+     relative, grad norms within 1e-2;
+ T4. the small model T2 wrote through `VC.get_vc` and a 10 s `vc_single`
+     with RMVPE (6 K1 and 72 K2 launches), and the same conversion,
+     deterministic, on the card against the CPU (relative L2 < 1e-3);
 then one JSON line of kernels, the card line again, and the result line.
 """
 
@@ -617,8 +639,8 @@ def feed_blocks(sess, audio, first, n, each=None):
 
 def device_busy_ms(fn):
     """Device time of the kernels and copies `fn` runs, by torch.profiler:
-    (total ms, [(name, ms, calls)] of the eight largest), or (None, [])
-    where the profiler saw no device activity.  Only events of the device
+    (total ms, [(name, ms, calls)] largest first), or (None, []) where the
+    profiler saw no device activity.  Only events of the device
     count: a host-side operator's row repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -629,7 +651,10 @@ def device_busy_ms(fn):
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a record_function range (the optimizers' `Optimizer.step#...`)
+        # shows on the device timeline too, spanning kernels counted below
+        if e.device_type != DeviceType.CUDA or "#" in e.key or \
+                getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -638,7 +663,21 @@ def device_busy_ms(fn):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    return (total if total > 0 else None), rows[:8]
+    return (total if total > 0 else None), rows
+
+
+def stage_key_us(dec, reps=200):
+    """Host µs a block spends keying the decoder's stage-weight cache (every
+    stage, as `_resblock_stage` does once a stage a block)."""
+    from tpu_rvc_torch.nn.generators import stage_key
+
+    k = dec.num_kernels
+    stages = [dec.resblocks[i * k:(i + 1) * k] for i in range(len(dec.ups))]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for blocks in stages:
+            stage_key(blocks)
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
@@ -689,6 +728,7 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
                 sess, audio, n_warm + n_timed, n_profiled))
         wall = float(np.median(walls))
         say("streaming", path="fused" if fused else "host",
+            stage_key_us_per_block=stage_key_us(sess.engine.synth.dec),
             model="v2/48k random weights", f0method="rmvpe",
             index_rows=10000, block_s=0.25, window_frames=geo.total // geo.zc,
             blocks=n_timed, wall_ms_median=wall,
@@ -703,7 +743,7 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
                                        else None),
             top_kernels_ms_per_block=[
                 [name[:60], ms / n_profiled, calls / n_profiled]
-                for name, ms, calls in top],
+                for name, ms, calls in top[:8]],
             sola_margin_min=float(np.min(margins)),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return want
@@ -906,7 +946,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
                                        else None),
             top_kernels_ms_per_tick=[
                 [name[:60], ms / n_profiled, calls / n_profiled]
-                for name, ms, calls in top],
+                for name, ms, calls in top[:8]],
             underruns=stats["underruns"],
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     # the two timed runs drew the same noise (the generator is seeded with
@@ -1196,6 +1236,300 @@ def tcp_loopback(tmp, n_clients=2):
         ticks=final["ticks"], wall_s=wall, clock="stands still")
 
 
+# ---------------------------------------------------------------------------
+# phases T1-T4: GAN training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_FILES, TRAIN_SECONDS = 16, 4.0
+
+
+def no_launches(what):
+    from tpu_rvc_torch.ops.kernels import launch_counts
+
+    if any(launch_counts.values()):
+        raise AssertionError(f"{what} launched kernels {dict(launch_counts)}"
+                             "; training runs no kernel")
+
+
+def train_prepare(tmp):
+    """T1: 16 synthetic 4 s voices at 48 kHz -> preprocess -> extract (RMVPE
+    from `write_rmvpe`, HuBERT-base from a seed, on the card) -> index ->
+    filelist, through `apps/train.py`'s `main`."""
+    from tpu_rvc_torch.apps.train import main as train_main
+    from tpu_rvc_torch.audio.io import save_wav
+    from tpu_rvc_torch.train.data import write_filelist
+
+    raw, exp = os.path.join(tmp, "train_raw"), os.path.join(tmp, "train_exp")
+    os.makedirs(raw)
+    for i in range(TRAIN_FILES):
+        save_wav(os.path.join(raw, f"v{i:02d}.wav"),
+                 voice(TRAIN_SECONDS, 100 + i, sr=48000), 48000)
+    secs = {}
+    for cmd, args in (
+            ("preprocess", ["--input-dir", raw, "--sr", "48000",
+                            "--workers", "4"]),
+            ("extract", ["--version", "v2", "--f0-method", "rmvpe",
+                         "--rmvpe-root", tmp, "--hubert", "random"]),
+            ("index", ["--version", "v2", "--name", "smoke"])):
+        t0 = time.perf_counter()
+        train_main([cmd, "--exp-dir", exp] + args)
+        secs[cmd] = time.perf_counter() - t0
+    counts = {d: len(os.listdir(os.path.join(exp, d))) for d in (
+        "0_gt_wavs", "1_16k_wavs", "2a_f0", "2b-f0nsf", "3_feature768")}
+    if set(counts.values()) != {TRAIN_FILES}:
+        raise AssertionError(f"prepared files {counts}")
+    feat_dir = os.path.join(exp, "3_feature768")
+    feats = np.load(os.path.join(feat_dir, sorted(os.listdir(feat_dir))[0]))
+    if feats.shape[1] != 768 or not np.isfinite(feats).all():
+        raise AssertionError(f"features {feats.shape}")
+    rows = open(write_filelist(exp, "v2", True, 0, "48k")).read().split()
+    if len(rows) != TRAIN_FILES + 2:
+        raise AssertionError(f"{len(rows)} filelist rows")
+    say("train_prepare", files=TRAIN_FILES, seconds_each=TRAIN_SECONDS,
+        prepared=counts, feature_frames=int(feats.shape[0]),
+        filelist_rows=len(rows), seconds=secs,
+        index=os.path.exists(os.path.join(exp, "added_smoke.tpuidx.npz")))
+    return exp
+
+
+def grads_reach_every_layer(state, batch):
+    """On the card: a training forward under the step's precision gives
+    enc_p's attention and every resblock a nonzero gradient."""
+    from tpu_rvc_torch.train.step import batch_to_device
+
+    net, b = state.net_g, batch_to_device(batch, "cuda")
+    with state._autocast():
+        o, *_, (_, _, m_p, _, _, _) = net(
+            b["phone"], b["phone_lengths"], b["spec"], b["spec_lengths"],
+            b["sid"], b["pitch"], b["pitchf"])
+    params = [p for layer in net.enc_p.encoder.attn_layers
+              for p in (layer.conv_q.weight, layer.emb_rel_k)]
+    params += [c.weight_v for rb in net.dec.resblocks
+               for c in list(rb.convs1) + list(rb.convs2)]
+    loss = o.float().square().mean() + m_p.float().square().mean()
+    grads = torch.autograd.grad(loss, params)
+    zero = sum(int(float(g.abs().max()) == 0) for g in grads)
+    if zero:
+        raise AssertionError(f"{zero} of {len(grads)} attention/resblock "
+                             "tensors got no gradient")
+    return len(grads)
+
+
+def infer_args(T=200, seed=12):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(rng.standard_normal((1, T, 768)).astype(
+        np.float32)).to(dev), torch.tensor([T], device=dev),
+        torch.tensor([0], device=dev),
+        torch.from_numpy(rng.integers(1, 255, (1, T))).to(dev),
+        torch.from_numpy(rng.uniform(100, 300, (1, T)).astype(
+            np.float32)).to(dev))
+
+
+def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
+    """T2: v2/48k at full width, batch 4, segment 17280, bf16 as the preset
+    says: 3 epochs through `run_training` (a checkpoint each), then a
+    resumed run to a 4th; then steps timed one by one on the state of
+    epoch 4, and the live G against the G_*.pth it writes."""
+    from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.models.synthesizer import make_synthesizer
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.train.data import BucketBatcher, RVCDataset
+    from tpu_rvc_torch.train.loop import (export_reference_g_pth,
+                                          latest_checkpoint,
+                                          load_native_checkpoint,
+                                          run_training)
+    from tpu_rvc_torch.train.step import create_train_state
+    from tpu_rvc_torch.utils import timing
+
+    hp = hparams_for("v2", 48000)
+    t = hp.train
+    if (t.batch_size, t.segment_size, t.fp16_run) != (4, 17280, True):
+        raise AssertionError(f"v2/48k preset changed: {t}")
+    logs = []
+
+    def log(line):
+        logs.append(line)
+        print(line, flush=True)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_training(exp, hp, total_epochs=3, save_every_epoch=1, name="trained",
+                 log_fn=log, tensorboard=False)
+    three_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = run_training(exp, hp, total_epochs=4, save_every_epoch=1,
+                           name="trained", log_fn=log, tensorboard=False)
+    resume_s = time.perf_counter() - t0
+    run_counts = dict(launch_counts)
+    no_launches("run_training")
+    if not any("resumed from" in ln and "state_3.pt" in ln for ln in logs):
+        raise AssertionError("the 4th epoch did not resume from state_3.pt")
+    for f in ["trained.pth"] + [f"{k}_{e}.{x}" for e in range(1, 5)
+                                for k, x in (("state", "pt"), ("G", "pth"))]:
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f"{f} was not written")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"losses not finite: {metrics}")
+
+    ds = RVCDataset(os.path.join(exp, "filelist.txt"), hp)
+    batcher = BucketBatcher(ds, t.batch_size, seed=t.seed)
+    spe = max(len(ds) // t.batch_size, 1)
+    state = create_train_state(hp, steps_per_epoch=spe)
+    epoch = load_native_checkpoint(latest_checkpoint(exp), state)
+    if epoch != 4:
+        raise AssertionError(f"latest checkpoint is of epoch {epoch}")
+    n_grads = grads_reach_every_layer(state, next(batcher.epoch(0)))
+    args = infer_args()
+    state.net_g.infer(*args, deterministic=True)  # fills the stage cache
+
+    def batches():
+        e = 0
+        while True:
+            yield from batcher.epoch(e)
+            e += 1
+
+    it = batches()
+    reset_launch_counts()
+    walls, host_ms, spans = [], [], []
+    for i in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        if i == n_warm:
+            torch.cuda.reset_peak_memory_stats()
+        timing.enable()
+        m = state.train_step(batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        spans.append(timing.read())
+        timing.disable()
+        if i >= n_warm:
+            host_ms.append((t1 - t0) * 1e3)
+            walls.append((t2 - t1) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    three = [next(it) for _ in range(n_profiled)]
+    busy, top = device_busy_ms(lambda: [state.train_step(b) for b in three])
+    train_counts = {k: run_counts[k] + v for k, v in launch_counts.items()}
+    no_launches("the timed training steps")
+    if not all(math.isfinite(float(v)) for k, v in m.items()
+               if v.dim() == 0):
+        raise AssertionError(f"losses not finite: {m}")
+    split = {k: float(np.median([s[k] for s in spans[n_warm:]]))
+             for k in spans[-1]}
+    wall = float(np.median(walls))
+
+    # the live G, its cache filled before the optimizer moved its weights
+    # in place, against the G_*.pth it writes, reloaded
+    reset_launch_counts()
+    live = state.net_g.infer(*args, deterministic=True)
+    live_launches = dict(launch_counts)
+    path = os.path.join(tmp, "G_live.pth")
+    export_reference_g_pth(path, state.net_g, 5, state.lr())
+    fresh = make_synthesizer(hp, device="cuda", seed=1)
+    fresh.load_state_dict(synthesizer_state_from_reference(
+        torch.load(path, map_location="cpu", weights_only=True)["model"]))
+    err = float((live - fresh.infer(*args, deterministic=True)).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"live G against its reloaded G_*.pth: {err}")
+    say("train", model="v2/48k random init", batch=t.batch_size,
+        segment=t.segment_size, precision="bf16 autocast, fp32 params",
+        epochs=4, steps_per_epoch=spe, run_training_3_epochs_s=three_s,
+        resume_4th_epoch_s=resume_s, final_metrics=metrics,
+        step_ms_median=wall, step_ms_p90=float(np.percentile(walls, 90)),
+        step_ms_max=float(np.max(walls)), steps_timed=n_timed,
+        warmup_steps=n_warm,
+        samples_per_s=t.batch_size * t.segment_size / (wall / 1e3),
+        span_ms=split, host_batch_ms_median=float(np.median(host_ms)),
+        device_busy_ms_per_step=(busy / n_profiled if busy else None),
+        device_busy_share=(busy / n_profiled / wall if busy else None),
+        device_ops_per_step=sum(c for _, _, c in top) / n_profiled,
+        top_kernels_ms_per_step=[[name[:60], ms / n_profiled,
+                                  calls / n_profiled]
+                                 for name, ms, calls in top[:10]],
+        peak_mem_gb=peak_gb, kernel_launches_in_training=train_counts,
+        grads_nonzero=n_grads, live_vs_reloaded_max_abs=err,
+        live_infer_launches=live_launches)
+    return os.path.join(exp, "trained.pth"), train_counts
+
+
+def train_against_cpu(exp):
+    """T3: one pinned fp32 step (TF32 off) at full width, batch 2 in a
+    200-frame bucket, on the card and on the CPU from the same weights."""
+    import dataclasses
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.train.data import BucketBatcher, RVCDataset
+    from tpu_rvc_torch.train.step import create_train_state
+
+    hp = hparams_for("v2", 48000)
+    hp = dataclasses.replace(hp, train=dataclasses.replace(
+        hp.train, fp16_run=False))
+    ds = RVCDataset(os.path.join(exp, "filelist.txt"), hp)
+    batch = BucketBatcher(ds, 2)._collate([ds.load(0), ds.load(1)], 200)
+    rng = np.random.default_rng(13)
+    batch["pin_ids_slice"] = np.array([10, 150], np.int32)
+    batch["pin_noise_eps"] = rng.standard_normal(
+        (2, 200, hp.model.inter_channels)).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(hp, seed=7, device=dev)
+        t0 = time.perf_counter()
+        m = state.train_step(batch)
+        got[dev] = {k: float(v) for k, v in m.items() if v.dim() == 0}
+        got[dev + "_s"] = time.perf_counter() - t0
+    rel = {k: abs(got["cuda"][k] - v) / max(abs(v), 1e-12)
+           for k, v in got["cpu"].items()}
+    bad = {k: r for k, r in rel.items()
+           if r > (1e-2 if k.startswith("grad_norm") else 1e-3)}
+    if bad:
+        raise AssertionError(f"card against CPU step: {bad}; card "
+                             f"{got['cuda']}, cpu {got['cpu']}")
+    say("train_against_cpu", precision="fp32, TF32 off", batch=2,
+        bucket=200, rel_err=rel, card=got["cuda"],
+        card_step_s=got["cuda_s"], cpu_step_s=got["cpu_s"])
+
+
+def trained_model_converts(tmp, model):
+    """T4: the small model T2 wrote through VC.get_vc -> a 10 s vc_single
+    on the card (6 K1, 72 K2), and the same conversion, deterministic, on
+    the card against the CPU."""
+    from tpu_rvc_torch.audio.io import load_audio
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.models.loader import load_synthesizer
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.vc import VC, Pipeline
+
+    wav = os.path.join(tmp, "voice_10s.wav")
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    vc.vc_single(0, wav, f0_method="rmvpe")                  # warm-up
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    info, (sr, audio) = vc.vc_single(0, wav, f0_method="rmvpe")
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(launch_counts)
+    check_output(audio, expected_len(160000, vc.x_pad, 480, 48000),
+                 "trained model's conversion")
+    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    if counts != want:
+        raise AssertionError(f"trained model launches {counts}, want {want}")
+    x = load_audio(wav, 16000)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        synth, _ = load_synthesizer(model, dev)
+        pipe = Pipeline(48000, hubert=hubert_for_version("v2", dev),
+                        synth=synth, x_pad=0.5, rmvpe_root=tmp,
+                        noise_scale=0.0, deterministic=True, device=dev)
+        outs.append(pipe.pipeline(0, x, [0.0, 0.0, 0.0], 0, "rmvpe", None,
+                                  0.0, 1, 3, 0, 0.25, 0.33).astype(np.float64))
+    rel = rel_l2(outs[0], outs[1], "trained model, card against CPU")
+    say("trained_model_converts", model="the small model of 4 epochs",
+        input_s=10.0, f0_method="rmvpe", wall_ms=wall, launches=counts,
+        card_vs_cpu_rel_l2=rel, samples=int(outs[0].shape[0]))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1234,6 +1568,10 @@ def main():
         streams_against_sessions(tmp)
         noise_reduction(tmp)
         tcp_loopback(tmp)
+        exp = train_prepare(tmp)
+        model, train_counts = train_full_width(tmp, exp)
+        train_against_cpu(exp)
+        trained_counts = trained_model_converts(tmp, model)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -1241,6 +1579,8 @@ def main():
                                 else stream_counts)[e["name"]]
         e["batch_launches"] = (serve_rb_counts if rb
                                else serve_counts)[e["name"]]
+        e["train_launches"] = train_counts[e["name"]]
+        e["trained_model_launches"] = trained_counts[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

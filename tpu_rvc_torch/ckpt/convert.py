@@ -11,6 +11,13 @@ The port's parameters carry the reference torch names and layouts, so:
   state_dict: this package's own copy of the inverse of
   tpu_rvc/ckpt/convert.py:122 (conv kernels (K, in, out) -> (out, in, K),
   transposed-conv kernels un-flipped to (in, out, K), Linear transposed).
+* `train_state_from_jax(g_params, d_params)` maps the JAX trainer's G and
+  D trees (weight norm kept, enc_q included) to the state_dicts of the
+  port's training G and its `MultiPeriodDiscriminator`: the inverse of
+  tpu_rvc/ckpt/convert.py:122-225 and :349-427.
+* `train_state_from_reference(sd)` takes a reference `G_*.pth`/`D_*.pth`
+  `model` dict (weight norm kept) for the training modules, and
+  `merge_partial` loads what of it fits (the warm start).
 * `hubert_state_from_jax(params)` does the same for HuBERT (fairseq names).
 * `rmvpe_state_from_jax(params)` does it for the RMVPE E2E tree (the
   reference `rmvpe.pt` names; BatchNorm stays folded as (scale, bias)):
@@ -100,9 +107,24 @@ def _linear_back(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[f"{prefix}.bias"] = np.asarray(tree["bias"], np.float32)
 
 
+def _wn_back(wn, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if "cond_layer" in wn:
+        _conv_back(wn["cond_layer"], f"{prefix}.cond_layer", out)
+    for m in range(sum(1 for k in wn if k.startswith("in_"))):
+        _conv_back(wn[f"in_{m}"], f"{prefix}.in_layers.{m}", out)
+        _conv_back(wn[f"res_skip_{m}"], f"{prefix}.res_skip_layers.{m}", out)
+
+
 def synthesizer_state_from_jax(params: Dict[str, Any]) -> StateDict:
     """tpu_rvc Synthesizer params (the flax tree, optionally under
-    "params") -> the port's state_dict."""
+    "params") -> the port's inference state_dict (weight norm folded,
+    enc_q dropped)."""
+    return synthesizer_state_from_reference(_synthesizer_reference(params))
+
+
+def _synthesizer_reference(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The flax tree -> the reference layout, numpy, weight norm as it is
+    in the tree, enc_q included when the tree has it."""
     p = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
     enc_p = p["enc_p"]
@@ -130,14 +152,7 @@ def synthesizer_state_from_jax(params: Dict[str, Any]) -> StateDict:
         tree, pre = p["flow"][name], f"flow.flows.{2 * i}"
         _conv_back(tree["pre"], f"{pre}.pre", out)
         _conv_back(tree["post"], f"{pre}.post", out)
-        wn = tree["enc"]
-        if "cond_layer" in wn:
-            _conv_back(wn["cond_layer"], f"{pre}.enc.cond_layer", out)
-        n_wn = sum(1 for k in wn if k.startswith("in_"))
-        for m in range(n_wn):
-            _conv_back(wn[f"in_{m}"], f"{pre}.enc.in_layers.{m}", out)
-            _conv_back(wn[f"res_skip_{m}"], f"{pre}.enc.res_skip_layers.{m}",
-                       out)
+        _wn_back(tree["enc"], f"{pre}.enc", out)
 
     dec = p["dec"]
     _conv_back(dec["conv_pre"], "dec.conv_pre", out)
@@ -164,8 +179,77 @@ def synthesizer_state_from_jax(params: Dict[str, Any]) -> StateDict:
                                out)
     if "m_source" in dec:
         _linear_back(dec["m_source"]["l_linear"], "dec.m_source.l_linear", out)
+    if "enc_q" in p:
+        q = p["enc_q"]
+        _conv_back(q["pre"], "enc_q.pre", out)
+        _conv_back(q["proj"], "enc_q.proj", out)
+        _wn_back(q["enc"], "enc_q.enc", out)
     out["emb_g.weight"] = np.asarray(p["emb_g"]["embedding"])
-    return fold_weight_norm(out)
+    return out
+
+
+_V1_PERIODS = (2, 3, 5, 7, 11, 17)
+_V2_PERIODS = (2, 3, 5, 7, 11, 17, 23, 37)
+
+
+def discriminator_state_from_jax(params: Dict[str, Any],
+                                 version: str = "v2") -> StateDict:
+    """tpu_rvc MultiPeriodDiscriminator params -> the reference D layout
+    (this package's copy of tpu_rvc/ckpt/convert.py:395-427): 2-D kernels
+    (kh, kw, in, out) -> (out, in, kh, kw), g (1, 1, 1, out) -> (out, 1,
+    1, 1); DiscriminatorS's (k, 1, in, out) -> Conv1d (out, in, k)."""
+    p = params.get("params", params)
+    periods = _V2_PERIODS if version == "v2" else _V1_PERIODS
+    out: Dict[str, np.ndarray] = {}
+
+    def put(tree, name, prefix, from_1d=False):
+        g, v = (np.asarray(tree[f"{name}_{x}"], np.float32) for x in "gv")
+        if from_1d:
+            out[f"{prefix}.weight_g"] = np.transpose(g[0], (2, 0, 1))
+            out[f"{prefix}.weight_v"] = np.transpose(v[:, 0], (2, 1, 0))
+        else:
+            out[f"{prefix}.weight_g"] = np.transpose(g, (3, 0, 1, 2))
+            out[f"{prefix}.weight_v"] = np.transpose(v, (3, 2, 0, 1))
+        out[f"{prefix}.bias"] = np.asarray(tree[f"{name}_bias"], np.float32)
+
+    for i in range(6):
+        put(p["disc_s"], f"conv_{i}", f"discriminators.0.convs.{i}", True)
+    put(p["disc_s"], "conv_post", "discriminators.0.conv_post", True)
+    for j, period in enumerate(periods, start=1):
+        dp = p[f"disc_p{period}"]
+        for i in range(5):
+            put(dp, f"conv_{i}", f"discriminators.{j}.convs.{i}")
+        put(dp, "conv_post", f"discriminators.{j}.conv_post")
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def train_state_from_jax(g_params: Dict[str, Any], d_params: Dict[str, Any],
+                         version: str = "v2"):
+    """The JAX trainer's (G, D) parameter trees (numpy, weight norm
+    unfolded, enc_q included) -> (G, D) state_dicts of the port's training
+    modules (`make_synthesizer(train=True)`, `MultiPeriodDiscriminator`)."""
+    g = {k: _tensor(v) for k, v in _synthesizer_reference(g_params).items()}
+    return g, discriminator_state_from_jax(d_params, version)
+
+
+def train_state_from_reference(sd: Dict[str, Any]) -> StateDict:
+    """A reference training checkpoint's `model` dict -> float32 tensors
+    under the port's names (weight norm kept, legacy and torch>=2.1 keys
+    both accepted)."""
+    return {k: _tensor(v) for k, v in normalize_weight_norm_keys(sd).items()}
+
+
+def merge_partial(module: torch.nn.Module, sd: Dict[str, Any]) -> int:
+    """Load the tensors of `sd` whose name and shape match the module's,
+    leave the rest as they are (reference utils.py:33-73 semantics, the
+    warm start from pretrained G/D): returns how many matched."""
+    own = module.state_dict()
+    hits = {k: v for k, v in sd.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    with torch.no_grad():
+        for k, v in hits.items():
+            own[k].copy_(torch.as_tensor(v))
+    return len(hits)
 
 
 def hubert_state_from_jax(params: Dict[str, Any]) -> StateDict:

@@ -1,10 +1,15 @@
-"""The VITS synthesizer, inference only (port of
-tpu_rvc/models/synthesizer.py:125-220; reference rvc/layers/synthesizers.py).
+"""The VITS synthesizer (port of tpu_rvc/models/synthesizer.py; reference
+rvc/layers/synthesizers.py).
 
 `infer` keeps the JAX layouts: phone (B, T, encoder_dim), pitch (B, T)
-int, pitchf (B, T) Hz, sid (B,) -> audio (B, T * hop, 1).  Module names
-follow the reference (`enc_p`, `flow`, `dec`, `emb_g`); the training-only
-posterior encoder (enc_q) is not part of this port yet.
+int, pitchf (B, T) Hz, sid (B,) -> audio (B, T * hop, 1).  `forward` is
+the training forward (`:91-123`): enc_p + enc_q -> flow forward -> a
+random latent slice -> decoder, through the differentiable branches
+(`train=True`).  Module names follow the reference (`enc_p`, `enc_q`,
+`flow`, `dec`, `emb_g`).  Built with `train=True` (`make_synthesizer`)
+it holds enc_q and keeps the reference's convs under weight norm
+(`weight_g`/`weight_v`), the layout of a training checkpoint; built
+without, it is the folded inference model a small model loads into.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from torch import nn
 
 from tpu_rvc_torch.core.config import HParams
 from tpu_rvc_torch.core.device import fp32_math, resolve_device
-from tpu_rvc_torch.nn.encoders import TextEncoder
+from tpu_rvc_torch.nn.encoders import PosteriorEncoder, TextEncoder
 from tpu_rvc_torch.nn.flows import ResidualCouplingBlock
 from tpu_rvc_torch.nn.generators import Generator, NSFGenerator
 from tpu_rvc_torch.utils.timing import span
@@ -36,30 +41,73 @@ class Synthesizer(nn.Module):
                  upsample_initial_channel: int,
                  upsample_kernel_sizes: Tuple[int, ...], spk_embed_dim: int,
                  gin_channels: int, sr: int, encoder_dim: int,
-                 use_f0: bool):
+                 use_f0: bool, train: bool = False):
         super().__init__()
         self.sr = sr
         self.use_f0 = use_f0
         self.spk_embed_dim = spk_embed_dim
+        self.segment_size = segment_size
         self.upsample_rates = tuple(upsample_rates)
         self.enc_p = TextEncoder(encoder_dim, inter_channels, hidden_channels,
                                  filter_channels, n_heads, n_layers,
-                                 kernel_size, f0=use_f0)
+                                 kernel_size, f0=use_f0, p_dropout=p_dropout)
         dec = dict(initial_channel=inter_channels, resblock=resblock,
                    resblock_kernel_sizes=resblock_kernel_sizes,
                    resblock_dilation_sizes=resblock_dilation_sizes,
                    upsample_rates=upsample_rates,
                    upsample_initial_channel=upsample_initial_channel,
                    upsample_kernel_sizes=upsample_kernel_sizes,
-                   gin_channels=gin_channels)
+                   gin_channels=gin_channels, weight_norm=train)
         self.dec = NSFGenerator(sr=sr, **dec) if use_f0 else Generator(**dec)
+        if train:
+            self.enc_q = PosteriorEncoder(spec_channels, inter_channels,
+                                          hidden_channels, 5, 1, 16,
+                                          gin_channels=gin_channels)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5,
-                                          1, 3, gin_channels=gin_channels)
+                                          1, 3, gin_channels=gin_channels,
+                                          weight_norm=train)
         self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
 
     @property
     def hop(self) -> int:
         return math.prod(self.upsample_rates)
+
+    def forward(self, phone, phone_lengths, y, y_lengths, ds, pitch=None,
+                pitchf=None, ids_slice: Optional[torch.Tensor] = None,
+                noise_eps: Optional[torch.Tensor] = None,
+                deterministic: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """The training forward (reference synthesizers.py:132), channel-
+        last in and out: y is the linear spectrogram (B, T, F).  Returns
+        (audio slice (B, segment, 1), ids_slice (B,), x_mask, y_mask,
+        (z, z_p, m_p, logs_p, m_q, logs_q)), masks (B, T, 1), latents
+        (B, T, C).  `ids_slice` and `noise_eps` (B, T, C) pin the latent
+        slice and the posterior draw, `deterministic` zeroes the sine
+        source's noise; every other draw comes from `generator`."""
+        g = self.emb_g(ds.long())[:, :, None]                 # (B, gin, 1)
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths,
+                                         train=True)
+        z, m_q, logs_q, y_mask = self.enc_q(y, y_lengths, g=g, eps=noise_eps,
+                                            generator=generator)
+        mask_cf = y_mask.transpose(1, 2)
+        z_p = self.flow(z.transpose(1, 2), mask_cf, g=g,
+                        reverse=False).transpose(1, 2)
+        seg = self.segment_size // self.hop
+        if ids_slice is None:
+            max_start = torch.clamp(y_lengths - seg - 1, min=1).float()
+            u = torch.rand(z.shape[0], generator=generator, device=z.device)
+            ids_slice = (u * max_start).to(torch.int32)
+        idx = ids_slice.long()[:, None] + torch.arange(seg, device=z.device)
+        z_slice = torch.gather(
+            z, 1, idx[:, :, None].expand(-1, -1, z.shape[-1]))
+        if self.use_f0 and pitchf is not None:
+            o = self.dec(z_slice.transpose(1, 2), torch.gather(pitchf, 1, idx),
+                         g=g, generator=generator,
+                         deterministic=deterministic, train=True)
+        else:
+            o = self.dec(z_slice.transpose(1, 2), g=g, train=True)
+        return (o.transpose(1, 2), ids_slice, x_mask, y_mask,
+                (z, z_p, m_p, logs_p, m_q, logs_q))
 
     @torch.no_grad()
     @fp32_math()
@@ -109,9 +157,10 @@ class Synthesizer(nn.Module):
 
 
 def make_synthesizer(hp: HParams, use_f0: bool = True, device=None,
-                     seed: int = 0) -> Synthesizer:
+                     seed: int = 0, train: bool = False) -> Synthesizer:
     """A Synthesizer from HParams with random weights drawn from `seed`,
-    on `device` (default "cuda")."""
+    on `device` (default "cuda"); `train=True` gives the trainer's layout
+    (enc_q, weight norm) in training mode."""
     dev = resolve_device(device)
     m, d = hp.model, hp.data
     with torch.random.fork_rng(devices=[]):
@@ -131,5 +180,6 @@ def make_synthesizer(hp: HParams, use_f0: bool = True, device=None,
             upsample_initial_channel=m.upsample_initial_channel,
             upsample_kernel_sizes=tuple(m.upsample_kernel_sizes),
             spk_embed_dim=m.spk_embed_dim, gin_channels=m.gin_channels,
-            sr=d.sampling_rate, encoder_dim=hp.encoder_dim, use_f0=use_f0)
-    return net.to(dev).eval()
+            sr=d.sampling_rate, encoder_dim=hp.encoder_dim, use_f0=use_f0,
+            train=train)
+    return net.to(dev).train(train)

@@ -1,12 +1,16 @@
 """VITS relative-position attention encoder, channel-last (B, T, C)
 (port of tpu_rvc/nn/attention.py:95-297).
 
-For T > W + 1 with lengths known (every call from `Encoder`), attention
-goes through `banded_rel_attention` (ops/kernels/rel_attention.py): the
-CUDA kernel on the card, its plain banded twin on the CPU.  Short
-sequences (T <= W + 1) take the Shaw index-shuffle branch, as the JAX
-module does (`:212-216`).  Parameter names follow the reference torch
-modules (`attn_layers.0.conv_q.weight`, `emb_rel_k`, ...).
+Inference (the default) sends T > W + 1 through `banded_rel_attention`
+(ops/kernels/rel_attention.py): the CUDA kernel on the card, its plain
+banded twin on the CPU.  The training forward (`train=True`, which
+`Synthesizer.forward` passes down) takes the JAX module's XLA branch
+instead (`:178-233`): dense scores with the band added by scatter, whole
+padded rows and columns masked, differentiable; the kernel has no
+backward, in the JAX package as here.  Short sequences (T <= W + 1) take
+the Shaw index-shuffle branch in both modes (`:212-216`).  Parameter
+names follow the reference torch modules (`attn_layers.0.conv_q.weight`,
+`emb_rel_k`, ...).
 """
 
 from __future__ import annotations
@@ -57,8 +61,9 @@ class MultiHeadRelAttention(nn.Module):
     attentions.py:9).  x: (B, T, C); lengths: (B,) true lengths."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: int = 10):
+                 window_size: int = 10, p_dropout: float = 0.0):
         super().__init__()
+        self.drop = nn.Dropout(p_dropout)
         self.channels, self.n_heads, self.window_size = (channels, n_heads,
                                                          window_size)
         dk = channels // n_heads
@@ -72,7 +77,8 @@ class MultiHeadRelAttention(nn.Module):
         self.emb_rel_k = nn.Parameter(torch.randn(shape) * dk ** -0.5)
         self.emb_rel_v = nn.Parameter(torch.randn(shape) * dk ** -0.5)
 
-    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+    def forward(self, x, lengths: Optional[torch.Tensor] = None,
+                train: bool = False):
         B, T, C = x.shape
         h, W = self.n_heads, self.window_size
         dk = C // h
@@ -85,7 +91,11 @@ class MultiHeadRelAttention(nn.Module):
         vh = split(_pointwise(self.conv_v, x))
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-        if T > W + 1:
+        if T <= W + 1:
+            out = self._shaw(qh, kh, vh, lengths, train)
+        elif train:
+            out = self._banded(qh, kh, vh, lengths)
+        else:
             bh_len = lengths.to(torch.int32).repeat_interleave(h).contiguous()
             out = banded_rel_attention(
                 qh.reshape(B * h, T, dk).contiguous(),
@@ -93,26 +103,48 @@ class MultiHeadRelAttention(nn.Module):
                 vh.reshape(B * h, T, dk).contiguous(),
                 self.emb_rel_k[0].contiguous(), self.emb_rel_v[0].contiguous(),
                 bh_len, window=W).reshape(B, h, T, dk)
-        else:
-            out = self._shaw(qh, kh, vh, lengths)
         out = out.transpose(1, 2).reshape(B, T, C)
         return _pointwise(self.conv_o, out)
 
-    def _shaw(self, qh, kh, vh, lengths):
-        """Short-sequence branch: full relative tables and index shuffles,
-        rows and columns beyond the length masked to -1e4."""
+    def _softmax(self, scores, lengths, train):
+        """Rows and columns beyond the length set to -1e4, softmax,
+        dropout in training."""
+        T = scores.shape[-1]
+        m = (torch.arange(T, device=scores.device)[None, :]
+             < lengths.to(scores.device)[:, None]).to(scores.dtype)
+        mask = m[:, None, :, None] * m[:, None, None, :]
+        p = torch.softmax(scores.masked_fill(mask == 0, -1e4), dim=-1)
+        return self.drop(p) if train else p
+
+    def _shaw(self, qh, kh, vh, lengths, train=False):
+        """Short-sequence branch: full relative tables and index shuffles."""
         T, W = qh.shape[2], self.window_size
         qs = qh * (1.0 / math.sqrt(qh.shape[-1]))
         scores = qs @ kh.transpose(-1, -2)
         kr = window_relative_embeddings(self.emb_rel_k, T, W)
         scores = scores + relative_to_absolute(qs @ kr[0].t())
-        m = (torch.arange(T, device=qh.device)[None, :]
-             < lengths.to(qh.device)[:, None]).to(qh.dtype)
-        mask = m[:, None, :, None] * m[:, None, None, :]
-        scores = scores.masked_fill(mask == 0, -1e4)
-        p = torch.softmax(scores, dim=-1)
+        p = self._softmax(scores, lengths, train)
         vr = window_relative_embeddings(self.emb_rel_v, T, W)
         return p @ vh + absolute_to_relative(p) @ vr[0]
+
+    def _banded(self, qh, kh, vh, lengths):
+        """The training branch for T > W + 1 (tpu_rvc/nn/attention.py:
+        197-233): the relative tables are zero outside |i - j| <= W, so the
+        Shaw shuffles reduce to a banded scatter-add into the dense scores
+        and a banded gather out of the probabilities."""
+        B, H, T, dk = qh.shape
+        W = self.window_size
+        qs = qh * (1.0 / math.sqrt(dk))
+        scores = qs @ kh.transpose(-1, -2)                   # (B, H, T, T)
+        rows = torch.arange(T, device=qh.device)[:, None]
+        cols = rows + torch.arange(-W, W + 1, device=qh.device)[None, :]
+        valid = ((cols >= 0) & (cols < T)).to(qh.dtype)
+        cols_c = cols.clamp(0, T - 1).expand(B, H, T, 2 * W + 1)
+        band = (qs @ self.emb_rel_k[0].t()) * valid          # (B, H, T, 2W+1)
+        scores = scores.scatter_add(-1, cols_c, band.to(scores.dtype))
+        p = self._softmax(scores, lengths, True)
+        rel_w = torch.gather(p, -1, cols_c) * valid.to(p.dtype)
+        return p @ vh + rel_w @ self.emb_rel_v[0].to(p.dtype)
 
 
 class FFN(nn.Module):
@@ -120,9 +152,11 @@ class FFN(nn.Module):
     channel-last in and out."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 filter_channels: int, kernel_size: int):
+                 filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
+        self.drop = nn.Dropout(p_dropout)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
@@ -130,11 +164,13 @@ class FFN(nn.Module):
         k = self.kernel_size
         return F.pad(x, ((k - 1) // 2, k // 2)) if k > 1 else x
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, train: bool = False):
         # x: (B, T, C); x_mask: (B, T, 1)
         m = x_mask.transpose(1, 2)
-        y = self.conv_1(self._pad(x.transpose(1, 2) * m))
-        y = self.conv_2(self._pad(torch.relu(y) * m))
+        y = torch.relu(self.conv_1(self._pad(x.transpose(1, 2) * m)))
+        if train:
+            y = self.drop(y)
+        y = self.conv_2(self._pad(y * m))
         return (y * m).transpose(1, 2)
 
 
@@ -143,27 +179,28 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int = 1,
-                 window_size: int = 10):
+                 window_size: int = 10, p_dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
         self.attn_layers = nn.ModuleList(
             MultiHeadRelAttention(hidden_channels, hidden_channels, n_heads,
-                                  window_size) for _ in range(n_layers))
+                                  window_size, p_dropout)
+            for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(
             LayerNorm1d(hidden_channels) for _ in range(n_layers))
         self.ffn_layers = nn.ModuleList(
             FFN(hidden_channels, hidden_channels, filter_channels,
-                kernel_size) for _ in range(n_layers))
+                kernel_size, p_dropout) for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(
             LayerNorm1d(hidden_channels) for _ in range(n_layers))
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, train: bool = False):
         # x: (B, T, H); x_mask: (B, T, 1)
         lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32)
         x = x * x_mask
         for i in range(self.n_layers):
-            y = self.attn_layers[i](x, lengths)
+            y = self.attn_layers[i](x, lengths, train)
             x = self.norm_layers_1[i](x + y)
-            y = self.ffn_layers[i](x, x_mask)
+            y = self.ffn_layers[i](x, x_mask, train)
             x = self.norm_layers_2[i](x + y)
         return x * x_mask

@@ -1,12 +1,16 @@
 """HiFiGAN / NSF-HiFiGAN decoders (port of tpu_rvc/nn/generators.py).
 
 Channel-first (B, C, T).  Each upsample level's resblock stage goes through
-`_resblock_stage`: ResBlock1 stages run in the stage kernel
+`_resblock_stage`.  In inference ResBlock1 stages run in the stage kernel
 (ops/kernels/resblock.py, `fused_stage`, or `fused_resblock` for one
 resblock; the batch goes in whole, as the kernel's stream axis), ResBlock2
-stages in plain PyTorch.  The stage weights are
-relaid for the kernel once per module and device, and the cache is
-dropped when a state_dict is loaded.
+stages in plain PyTorch.  The stage weights are relaid for the kernel once
+per stage and device and kept while the parameters stay as they were: the
+cache is keyed on each parameter's storage and version counter, which
+every in-place write (an optimizer step, `load_state_dict`) moves on.  The
+training forward (`train=True`) runs `mean_j ResBlock1_j.forward(x)`, as
+the JAX decoder does outside its kernel context
+(tpu_rvc/nn/generators.py:78-83): the kernel has no backward.
 
 Two leaky-ReLU slopes: 0.1 between layers, the default 0.01 before
 conv_post (reference generators.py / nsf.py).
@@ -25,7 +29,7 @@ from tpu_rvc_torch.ops.kernels.resblock import (fused_resblock, fused_stage,
                                                  stage_weights)
 from tpu_rvc_torch.ops.resample import linear_interp_1d, nearest_upsample
 from .modules import (LRELU_SLOPE, Conv1d, ConvTranspose1d, Linear,
-                      ResBlock1, ResBlock2, normal_001_)
+                      ResBlock1, ResBlock2, WNConvTranspose1d, normal_001_)
 
 
 class _Decoder(nn.Module):
@@ -36,7 +40,8 @@ class _Decoder(nn.Module):
                  resblock_kernel_sizes: Sequence[int],
                  resblock_dilation_sizes: Sequence[Sequence[int]],
                  upsample_rates: Sequence[int], upsample_initial_channel: int,
-                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0):
+                 upsample_kernel_sizes: Sequence[int], gin_channels: int = 0,
+                 weight_norm: bool = False):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         self.upsample_rates = tuple(upsample_rates)
@@ -46,18 +51,17 @@ class _Decoder(nn.Module):
         if gin_channels != 0:
             self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
         rb = ResBlock1 if resblock == "1" else ResBlock2
+        up = WNConvTranspose1d if weight_norm else ConvTranspose1d
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(normal_001_(ConvTranspose1d(
-                2 * ch, ch, k, u, padding=(k - u) // 2)))
+            self.ups.append(normal_001_(up(2 * ch, ch, k, u,
+                                           padding=(k - u) // 2)))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(rb(ch, rk, rd))
+                self.resblocks.append(rb(ch, rk, rd, weight_norm=weight_norm))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
         self._stage_cache = {}
-        self.register_load_state_dict_post_hook(
-            lambda module, keys: module._stage_cache.clear())
 
     def _pre(self, x, g):
         x = self.conv_pre(x)
@@ -69,30 +73,39 @@ class _Decoder(nn.Module):
         x = F.leaky_relu(x)  # default slope 0.01, as the reference
         return torch.tanh(self.conv_post(x))
 
-    def _resblock_stage(self, x, i: int):
+    def _resblock_stage(self, x, i: int, train: bool = False):
         """mean_j ResBlock_j(x) of upsample level i."""
         blocks = self.resblocks[i * self.num_kernels:
                                 (i + 1) * self.num_kernels]
-        if not isinstance(blocks[0], ResBlock1):
+        if train or not isinstance(blocks[0], ResBlock1):
             return sum(rb(x) for rb in blocks) / self.num_kernels
-        key = (i, x.device)
-        if key not in self._stage_cache:
-            self._stage_cache[key] = stage_weights(blocks)
-        sw = self._stage_cache[key]
+        version = stage_key(blocks)
+        cached = self._stage_cache.get((i, x.device))
+        if cached is None or cached[0] != version:
+            cached = (version, stage_weights(blocks))
+            self._stage_cache[(i, x.device)] = cached
+        sw = cached[1]
         stage = fused_resblock if len(blocks) == 1 else fused_stage
         return stage(x.contiguous(), sw)  # the batch whole, no loop over it
+
+
+def stage_key(blocks) -> tuple:
+    """Each parameter's storage and in-place version counter: a load or an
+    optimizer step changes it, so the relaid stage weights follow."""
+    return tuple((p.data_ptr(), p._version) for p in blocks.parameters())
 
 
 class Generator(_Decoder):
     """HiFiGAN generator without f0 (reference generators.py:14)."""
 
-    def forward(self, x, g=None, n_res: Optional[int] = None):
+    def forward(self, x, g=None, n_res: Optional[int] = None,
+                train: bool = False):
         if n_res is not None and int(n_res) != x.shape[-1]:
             x = linear_interp_1d(x, int(n_res))
         x = self._pre(x, g)
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
-            x = self._resblock_stage(x, i)
+            x = self._resblock_stage(x, i, train)
         return self._post(x)
 
 
@@ -177,11 +190,12 @@ class NSFGenerator(_Decoder):
     def __init__(self, initial_channel: int, resblock: str,
                  resblock_kernel_sizes, resblock_dilation_sizes,
                  upsample_rates, upsample_initial_channel: int,
-                 upsample_kernel_sizes, gin_channels: int, sr: int):
+                 upsample_kernel_sizes, gin_channels: int, sr: int,
+                 weight_norm: bool = False):
         super().__init__(initial_channel, resblock, resblock_kernel_sizes,
                          resblock_dilation_sizes, upsample_rates,
                          upsample_initial_channel, upsample_kernel_sizes,
-                         gin_channels)
+                         gin_channels, weight_norm)
         self.upp = math.prod(upsample_rates)
         self.m_source = SourceModuleHnNSF(sr, harmonic_num=0)
         self.noise_convs = nn.ModuleList()
@@ -196,7 +210,7 @@ class NSFGenerator(_Decoder):
 
     def forward(self, x, f0, g=None, n_res: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = False):
+                deterministic: bool = False, train: bool = False):
         # x: (B, C, T) latent; f0: (B, T_frames) Hz; g: (B, gin, 1)
         upp = self.upp
         har = self.m_source(f0, upp, generator, deterministic)  # (B, T*upp, 1)
@@ -211,5 +225,5 @@ class NSFGenerator(_Decoder):
         for i, (up, nc) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             x = x + nc(har)
-            x = self._resblock_stage(x, i)
+            x = self._resblock_stage(x, i, train)
         return self._post(x)

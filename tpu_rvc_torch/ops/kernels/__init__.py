@@ -4,6 +4,9 @@ Each wrapper takes the plain version for CPU tensors and launches its CUDA
 kernel for CUDA tensors (raising on anything the kernel does not take);
 there is no fallback between the two.  `launch_counts` holds one plain
 integer per wrapper, raised by one at each kernel launch and nowhere else.
+All of them are forward only, as the JAX kernels are (no VJP): with grad
+mode on, an input that requires grad makes a wrapper raise on any device
+(`refuse_grad`), and training runs the modules' differentiable branches.
 """
 
 from .rel_attention import (banded_rel_attention,

@@ -1,4 +1,7 @@
-"""Launch counters: one plain integer per kernel wrapper."""
+"""Launch counters, one plain integer per kernel wrapper, and the guard
+every wrapper runs first."""
+
+import torch
 
 launch_counts = {"banded_rel_attention": 0, "fused_stage": 0,
                  "fused_resblock": 0}
@@ -7,3 +10,14 @@ launch_counts = {"banded_rel_attention": 0, "fused_stage": 0,
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise, on every device, when autograd would record through a kernel
+    wrapper: the kernels and their plain twins alike have no backward (the
+    JAX kernels have no VJP either), so a training forward must take the
+    modules' differentiable branches (`train=True`), never a wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad; the kernel has no backward, "
+            "so training runs the module's differentiable path (train=True)")

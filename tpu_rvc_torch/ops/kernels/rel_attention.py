@@ -8,7 +8,9 @@ kernel kept them resident.  At the encoder's shape the call is 1.8 GFLOP,
 0.011 ms at the 3xTF32 peak: what decides its time on the H100 is how
 long one warp's instruction stream is and how many SMs the call fills,
 which is what the kernel's layout (16 query rows a warp, the keys of a
-block split over two warp pairs) is about.
+block split over two warp pairs) is about.  Forward only: the trainer
+runs nn/attention.py's differentiable branch, and the wrapper raises on
+inputs that require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import math
 
 import torch
 
-from .counts import launch_counts
+from .counts import launch_counts, refuse_grad
 
 HEAD_WIDTHS = (32, 64, 96, 128)  # dk the kernel is built for
 MAX_WINDOW = 16
@@ -66,8 +68,11 @@ def _kernel():
 
 def banded_rel_attention(q, k, v, emb_rel_k, emb_rel_v, lengths,
                          window: int = 10):
-    """(BH, T, dk) fused attention.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    """(BH, T, dk) fused attention, forward only.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.  Raises on any
+    device when grad mode is on and an input requires grad (`refuse_grad`):
+    the training forward runs nn/attention.py's differentiable branch."""
+    refuse_grad("banded_rel_attention", q, k, v, emb_rel_k, emb_rel_v)
     if q.device.type == "cpu":
         return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v,
                                           lengths, window)

@@ -17,6 +17,8 @@ twice, as `w` in [tap][c_out][c_in] order for the plain twin, and as
 `packed`, the same values in the order of the instruction's A fragment
 (`pack_conv_weight`), which a thread fetches with one 16-byte load per
 (tap, 8 input channels) step and splits into hi and lo in registers.
+Forward only: the trainer runs `ResBlock1.forward`, and the wrappers
+raise on inputs that require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import RESBLOCK_CHANNELS as CHANNELS  # widths it is built for
-from .counts import launch_counts
+from .counts import launch_counts, refuse_grad
 
 LRELU_SLOPE = 0.1
 MAX_PAD = 32                       # (k - 1) / 2 * dilation at most
@@ -89,7 +91,9 @@ def pack_stage(kernel_sizes: Sequence[int], dilations: Sequence[int],
 
 def stage_weights(resblocks: Sequence[torch.nn.Module]) -> StageWeights:
     """Relayout the (C_out, C_in, K) conv weights of ResBlock1 modules
-    (`convs1`/`convs2`) for the kernel.  Call once and keep the result."""
+    (`convs1`/`convs2`) for the kernel: copies, the biases included, so
+    the result holds what the parameters were when it was made.  Keep it
+    while they stay so (nn/generators.py keys it on their versions)."""
     ws, bs = [], []
     dil = tuple(resblocks[0].dilation)
     for rb in resblocks:
@@ -99,7 +103,7 @@ def stage_weights(resblocks: Sequence[torch.nn.Module]) -> StageWeights:
         for c1, c2 in zip(rb.convs1, rb.convs2):
             for conv in (c1, c2):
                 w_r.append(conv.weight.detach().permute(2, 0, 1))
-                b_r.append(conv.bias.detach())
+                b_r.append(conv.bias.detach().clone())
         ws.append(w_r)
         bs.append(b_r)
     return pack_stage(tuple(rb.kernel_size for rb in resblocks), dil, ws, bs)
@@ -203,17 +207,27 @@ def _launch(x: torch.Tensor, sw: StageWeights, counter: str) -> torch.Tensor:
     return out
 
 
+def _refuse_grad(name: str, x: torch.Tensor, sw: StageWeights) -> None:
+    refuse_grad(name, x, *(t for group in (sw.w, sw.b, sw.packed)
+                           for ts in group for t in ts))
+
+
 def fused_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
-    """mean_r ResBlock1_r(x) for x (C, T) or (N, C, T).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel (two launches per
-    resblock and dilation, whatever N) or raise."""
+    """mean_r ResBlock1_r(x) for x (C, T) or (N, C, T), forward only.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (two
+    launches per resblock and dilation, whatever N) or raise.  Raises on
+    any device when grad mode is on and an input requires grad: the
+    training forward runs `ResBlock1.forward` (nn/generators.py)."""
+    _refuse_grad("fused_stage", x, sw)
     if x.device.type == "cpu":
         return stage_plain(x, sw)
     return _launch(x, sw, "fused_stage")
 
 
 def fused_resblock(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
-    """One ResBlock1 (the n_rb = 1 stage) for x (C, T) or (N, C, T)."""
+    """One ResBlock1 (the n_rb = 1 stage) for x (C, T) or (N, C, T),
+    forward only, guarded as `fused_stage`."""
+    _refuse_grad("fused_resblock", x, sw)
     if len(sw.kernel_sizes) != 1:
         raise ValueError("fused_resblock takes one resblock's weights")
     if x.device.type == "cpu":

@@ -1,7 +1,9 @@
 """Mel filterbank (port of tpu_rvc/ops/mel.py:26-82), numpy, cached per
 arguments.  The RMVPE frontend uses the HTK scale (`htk=True`, reference
 rvc/f0/mel.py:23); the Slaney scale is the default, and the Slaney area
-normalisation applies to both, as in librosa."""
+normalisation applies to both, as in librosa.  The training frontend
+(`:85-110`, reference mel_processing.py): `spectrogram`, `spec_to_mel`,
+`mel_spectrogram`, `dynamic_range_compression`, differentiable."""
 
 from __future__ import annotations
 
@@ -9,6 +11,10 @@ from functools import lru_cache
 from typing import Optional
 
 import numpy as np
+import torch
+
+from tpu_rvc_torch.core.device import device_constant
+from .stft import stft_magnitude
 
 
 def _hz_to_mel(f, htk: bool):
@@ -57,3 +63,34 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         weights = weights * (2.0 / (hz_pts[2: n_mels + 2]
                                     - hz_pts[:n_mels]))[:, None]
     return weights.astype(np.float32)
+
+
+def dynamic_range_compression(x: torch.Tensor,
+                              clip_val: float = 1e-5) -> torch.Tensor:
+    return torch.log(torch.clamp(x, min=clip_val))
+
+
+def spectrogram(y: torch.Tensor, n_fft: int, hop: int,
+                win: int) -> torch.Tensor:
+    """(B, T) -> (B, F, frames), reference `spectrogram_torch`."""
+    return stft_magnitude(y, n_fft, hop, win)
+
+
+def spec_to_mel(spec: torch.Tensor, n_fft: int, n_mels: int, sr: int,
+                fmin: float = 0.0, fmax: Optional[float] = None
+                ) -> torch.Tensor:
+    """(B, F, frames) -> (B, n_mels, frames), log-compressed (reference
+    `spec_to_mel_torch`)."""
+    basis = device_constant(("mel", sr, n_fft, n_mels, fmin, fmax),
+                            lambda: mel_filterbank(sr, n_fft, n_mels, fmin,
+                                                   fmax), spec.device)
+    return dynamic_range_compression(torch.einsum("mf,bft->bmt", basis,
+                                                  spec.float()))
+
+
+def mel_spectrogram(y: torch.Tensor, n_fft: int, n_mels: int, sr: int,
+                    hop: int, win: int, fmin: float = 0.0,
+                    fmax: Optional[float] = None) -> torch.Tensor:
+    """(B, T) -> (B, n_mels, frames) (reference `mel_spectrogram_torch`)."""
+    return spec_to_mel(spectrogram(y, n_fft, hop, win), n_fft, n_mels, sr,
+                       fmin, fmax)

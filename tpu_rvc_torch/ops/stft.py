@@ -1,5 +1,5 @@
 """STFT and inverse STFT (port of tpu_rvc/ops/stft.py: `hann_window` :25,
-`frame_signal` :32, `stft` :45, `istft` :89).
+`frame_signal` :32, `stft` :45, `stft_magnitude` :66, `istft` :89).
 
 center=False framing of a signal the caller has already padded:
 n_frames = 1 + (T - n_fft) // hop, periodic Hann window (centred in the
@@ -37,6 +37,20 @@ def stft(y: torch.Tensor, n_fft: int, hop: int,
     return torch.stft(y.float(), n_fft, hop_length=hop, win_length=win_length,
                       window=hann_window(win_length, y.device), center=False,
                       return_complex=True)
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int,
+                   win_length: Optional[int] = None,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The training spectrogram (reference `spectrogram_torch`): reflect-pad
+    (n_fft - hop) // 2 a side, center=False, sqrt(|X|^2 + eps).  y: (B, T)
+    -> (B, n_fft//2+1, frames), T // hop frames for T a multiple of hop.
+    Differentiable; eps inside the root keeps the gradient finite at zero
+    magnitude."""
+    p = (n_fft - hop) // 2
+    y = F.pad(y.float()[:, None], (p, p), mode="reflect")[:, 0]
+    spec = torch.view_as_real(stft(y, n_fft, hop, win_length))
+    return torch.sqrt(spec.pow(2).sum(-1) + eps)
 
 
 def istft(spec: torch.Tensor, n_fft: int, hop: int,
