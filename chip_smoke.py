@@ -89,9 +89,30 @@ Phases, one line of output each (any failure exits non-zero):
  T4. the small model T2 wrote through `VC.get_vc` and a 10 s `vc_single`
      with RMVPE (6 K1 and 72 K2 launches), and the same conversion,
      deterministic, on the card against the CPU (relative L2 < 1e-3);
+ F1. FCPE offline: a random-weight torchfcpe bundled checkpoint at the
+     bundled width (hidden 512, 6 layers, kernel 31, 360 bins), found by
+     the estimator's default lookup from a temporary working directory;
+     vc_single(f0_method="fcpe") as in 3 (launches equal to pm's), and
+     1 s on the card against the CPU (relative L2 < 1e-3);
+ F2. FCPE streaming: phase 8's fused session with "fcpe" (20 timed
+     blocks, one warm-up block under the sync debug mode, the profiler's
+     busy ms), and phase 10 with "fcpe" (card against CPU, fused against
+     host path);
+ F3. FCPE serving: phase 12 serial with "fcpe", N = 8, 3 + 10 ticks, and
+     two of the streams against their own sessions (1e-4 of full scale);
+ F4. the host estimators and tracks: the 10 s voice with crepe (random
+     CREPE full weights in torchcrepe's layout), dio, harvest
+     (filter_radius 3), pm with a manual f0 curve, and the pm track of the
+     same input precomputed (if_f0 = 2), one warm-up and one timed run
+     each, f0 ms and wall ms, 6 K1 and 72 K2 launches each; crepe and
+     harvest on 1 s, card against CPU; the FCPE track (offline, streaming
+     and 8-stream shapes) and the CREPE salience (1601 frames) alone:
+     CUDA-event ms, busy ms, kernel launches, work; SlotScheduler refuses
+     harvest; each F phase prints its seconds;
 then one JSON line of kernels, the card line again, and the result line.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -524,8 +545,11 @@ def single_resblock_path(tmp):
     return counts
 
 
-def against_cpu(tmp):
-    """The same deterministic conversion on the card and on the CPU."""
+def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
+                estimators=None):
+    """The same deterministic conversion on the card and on the CPU, for
+    each f0 method; `estimators(device)` gives estimators to put in the
+    pipeline's generator (CREPE has no default file)."""
     from tpu_rvc_torch.audio.io import load_audio
     from tpu_rvc_torch.models.hubert import hubert_for_version
     from tpu_rvc_torch.models.loader import load_synthesizer
@@ -535,19 +559,21 @@ def against_cpu(tmp):
     wav = os.path.join(tmp, "voice_1s.wav")
     write_voice(wav, 1.0, seed=5)
     audio = load_audio(wav, 16000)
-    outs = {"pm": [], "rmvpe": []}
+    outs = {m: [] for m in methods}
     for dev in ("cuda", "cpu"):
         synth, _ = load_synthesizer(model, dev)
         pipe = Pipeline(48000, hubert=hubert_for_version("v2", dev),
                         synth=synth, x_pad=0.5, rmvpe_root=tmp,
                         noise_scale=0.0, deterministic=True, device=dev)
+        if estimators is not None:
+            pipe.f0_gen._estimators.update(estimators(dev))
         for method in outs:
             outs[method].append(pipe.pipeline(
                 0, audio, [0.0, 0.0, 0.0], 0, method, None, 0.0, 1, 3, 0,
                 0.25, 0.33).astype(np.float64))
     for method, (gpu, cpu) in outs.items():
         rel = rel_l2(gpu, cpu, f"offline {method}")
-        say("against_cpu", f0_method=method, input_s=1.0,
+        say(phase, f0_method=method, input_s=1.0,
             samples=int(gpu.shape[0]), rel_l2_err=rel,
             max_abs_int16=float(np.abs(gpu - cpu).max()))
 
@@ -680,7 +706,8 @@ def stage_key_us(dec, reps=200):
     return (time.perf_counter() - t0) / reps * 1e6
 
 
-def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
+def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4, f0method="rmvpe",
+              paths=(True, False), phase="streaming"):
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.rt import StreamSession
     from tpu_rvc_torch.utils import timing
@@ -690,9 +717,9 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
     n_all = n_warm + n_timed + n_profiled
     audio = voice(n_all * 0.25, seed=6, sr=48000)
     want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
-    for fused in (True, False):
+    for fused in paths:
         sess = StreamSession(stream_engine(model, tmp, "cuda", index),
-                             f0method="rmvpe", fused=fused, **STREAM)
+                             f0method=f0method, fused=fused, **STREAM)
         if (sess._fused is not None) != fused:
             raise AssertionError(f"fused={fused} session took the other path")
         geo = sess.geometry
@@ -727,9 +754,9 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4):
             busy, top = device_busy_ms(lambda: feed_blocks(
                 sess, audio, n_warm + n_timed, n_profiled))
         wall = float(np.median(walls))
-        say("streaming", path="fused" if fused else "host",
+        say(phase, path="fused" if fused else "host",
             stage_key_us_per_block=stage_key_us(sess.engine.synth.dec),
-            model="v2/48k random weights", f0method="rmvpe",
+            model="v2/48k random weights", f0method=f0method,
             index_rows=10000, block_s=0.25, window_frames=geo.total // geo.zc,
             blocks=n_timed, wall_ms_median=wall,
             wall_ms_max=float(np.max(walls)),
@@ -775,7 +802,8 @@ def streaming_single_resblock(tmp, n_blocks=5):
     return want
 
 
-def streaming_against_cpu(tmp, n_blocks=8):
+def streaming_against_cpu(tmp, n_blocks=8, methods=("pm", "rmvpe"),
+                          phase="streaming_against_cpu"):
     """The same deterministic stream on the card and on the CPU, fused
     path, pm and rmvpe; and on the card the fused path against the host
     path.  The rmvpe weights are random but not saturated, so its argmax
@@ -785,7 +813,7 @@ def streaming_against_cpu(tmp, n_blocks=8):
 
     model = os.path.join(tmp, "v2_48k.pth")
     audio = voice(n_blocks * 0.25, seed=8, sr=48000)
-    for method in ("pm", "rmvpe"):
+    for method in methods:
         outs, margins = {}, []
         for dev, fused in (("cuda", True), ("cuda", False), ("cpu", True)):
             eng = stream_engine(model, tmp, dev, noise_scale=0.0,
@@ -798,7 +826,7 @@ def streaming_against_cpu(tmp, n_blocks=8):
         rel = rel_l2(outs["cuda", True], outs["cpu", True],
                      f"streaming {method}")
         host = float(np.abs(outs["cuda", True] - outs["cuda", False]).max())
-        say("streaming_against_cpu", f0method=method, blocks=n_blocks,
+        say(phase, f0method=method, blocks=n_blocks,
             samples=int(outs["cpu", True].shape[0]), rel_l2_err=rel,
             max_abs_err=float(np.abs(outs["cuda", True]
                                      - outs["cpu", True]).max()),
@@ -847,7 +875,8 @@ def lockstep_tick(sched, slots, audios, i, each=None):
     return outs
 
 
-def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
+def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
+            modes=(False, True), phase="serving"):
     """Phase 12 for one N: serial, then pipelined, on the same audio.
     Returns the launches of one tick."""
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -860,8 +889,8 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
     audios = client_voices(n_slots, n_all * 0.25, 20)
     want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
     streams = {}
-    for pipelined in (False, True):
-        sched = SlotScheduler(engine, n_slots, f0method="rmvpe",
+    for pipelined in modes:
+        sched = SlotScheduler(engine, n_slots, f0method=f0method,
                               pipelined=pipelined, **STREAM)
         bf = sched.block_frame
         slots = [sched.attach() for _ in range(n_slots)]
@@ -928,8 +957,8 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
         split = ({k: float(np.median([sp.get(k, 0.0) for sp in spans]))
                   for k in spans[-1]} if spans else None)
         wall = float(np.median(walls))
-        say("serving", mode="pipelined" if pipelined else "serial",
-            slots=n_slots, model="v2/48k random weights", f0method="rmvpe",
+        say(phase, mode="pipelined" if pipelined else "serial",
+            slots=n_slots, model="v2/48k random weights", f0method=f0method,
             index_rows=10000, block_s=0.25, ticks=n_timed,
             tick_wall_ms_median=wall,
             tick_wall_ms_p90=float(np.percentile(walls, 90)),
@@ -949,6 +978,8 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4):
                 for name, ms, calls in top[:8]],
             underruns=stats["underruns"],
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if len(modes) < 2:
+        return want
     # the two timed runs drew the same noise (the generator is seeded with
     # the graph's step), so they differ only by what differs between any
     # two runs on the card: cuDNN's default algorithm for the decoder's
@@ -1040,15 +1071,20 @@ def serving_single_resblock(tmp, n_slots=4, n_ticks=3):
     return want
 
 
-def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2):
-    """Phase 13.  Deterministic engines; the scheduler reads a clock that
-    stands still, since the reference sessions run between its ticks."""
+def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2,
+                             f0method="rmvpe", n_own=None,
+                             fed_and_churn=True,
+                             phase="streams_against_sessions"):
+    """Phase 13 (F3 with fcpe: the first `n_own` streams, no CPU
+    scheduler, no fed/churn ticks).  Deterministic engines; the scheduler
+    reads a clock that stands still, since the reference sessions run
+    between its ticks."""
     from tpu_rvc_torch.pipeline.rt import StreamSession
     from tpu_rvc_torch.pipeline.serve import SlotScheduler
 
     model = os.path.join(tmp, "v2_48k.pth")
     det = dict(noise_scale=0.0, deterministic=True)
-    kw = dict(f0method="rmvpe", protect=0.33, **STREAM)
+    kw = dict(f0method=f0method, protect=0.33, **STREAM)
     audios = client_voices(n_slots, (n_blocks + 2) * 0.25, 50)
     sched = SlotScheduler(stream_engine(model, tmp, "cuda", **det), n_slots,
                           clock=still_clock, **kw)
@@ -1065,7 +1101,7 @@ def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2):
     # each stream against a StreamSession of its own, fused path
     engine = stream_engine(model, tmp, "cuda", **det)
     worst, margins = 0.0, []
-    for s in range(n_slots):
+    for s in range(n_slots if n_own is None else n_own):
         sess = StreamSession(engine, fused=True, **kw)
         watch_sola(sess, margins)
         own = feed_blocks(sess, audios[s], 0, n_blocks).astype(np.float64)
@@ -1076,19 +1112,25 @@ def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2):
                                  f"differs from its own session by {diff} > "
                                  "1e-4 of full scale")
     # the first streams against a scheduler on the CPU
-    cpu = SlotScheduler(stream_engine(model, tmp, "cpu", **det), n_cpu,
-                        clock=still_clock, **kw)
-    cpu_slots = [cpu.attach() for _ in range(n_cpu)]
-    cpu_got = [[] for _ in cpu_slots]
-    for i in range(n_blocks):
-        for s, out in enumerate(lockstep_tick(cpu, cpu_slots, audios, i)):
-            cpu_got[s].append(out)
-    rels = [rel_l2(got[s], np.concatenate(cpu_got[s]).astype(np.float64),
-                   f"scheduler slot {s}") for s in range(n_cpu)]
-    say("streams_against_sessions", slots=n_slots, blocks=n_blocks,
-        f0method="rmvpe", max_abs_vs_own_session=worst, limit=1e-4,
+    rels = []
+    if n_cpu:
+        cpu = SlotScheduler(stream_engine(model, tmp, "cpu", **det), n_cpu,
+                            clock=still_clock, **kw)
+        cpu_slots = [cpu.attach() for _ in range(n_cpu)]
+        cpu_got = [[] for _ in cpu_slots]
+        for i in range(n_blocks):
+            for s, out in enumerate(lockstep_tick(cpu, cpu_slots, audios,
+                                                  i)):
+                cpu_got[s].append(out)
+        rels = [rel_l2(got[s], np.concatenate(cpu_got[s]).astype(np.float64),
+                       f"scheduler slot {s}") for s in range(n_cpu)]
+    say(phase, slots=n_slots, blocks=n_blocks, f0method=f0method,
+        own_sessions=n_slots if n_own is None else n_own,
+        max_abs_vs_own_session=worst, limit=1e-4,
         sola_margin_min=float(min(margins)), cpu_slots=n_cpu,
         rel_l2_vs_cpu_scheduler=rels)
+    if not fed_and_churn:
+        return
 
     # `fed`: a tick that feeds slots 0 and 3 only
     before = {k: v.clone() for k, v in sched.state.items()}
@@ -1530,6 +1572,196 @@ def trained_model_converts(tmp, model):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases F1-F4: the f0 estimators beyond pm and RMVPE
+# ---------------------------------------------------------------------------
+
+
+def write_fcpe(tmp, seed):
+    """A random-weight torchfcpe bundled checkpoint at the bundled model's
+    width (hidden 512, 6 layers, kernel 31, 360 bins), output projection
+    weight-normed, at `assets/fcpe/fcpe.pt` under tmp: the estimator's
+    default lookup finds it with tmp as the working directory."""
+    from tpu_rvc_torch.ckpt.fcpe_loader import random_fcpe_reference_state
+
+    os.makedirs(os.path.join(tmp, "assets", "fcpe"), exist_ok=True)
+    torch.save(random_fcpe_reference_state(seed),
+               os.path.join(tmp, "assets", "fcpe", "fcpe.pt"))
+
+
+def f0_phase_seconds(name, t0):
+    say("f0_phase_seconds", f0_phase=name, seconds=time.perf_counter() - t0)
+
+
+def fcpe_phases(tmp, main_counts):
+    """F1-F3, from tmp as the working directory.  Returns the launches of
+    one offline conversion, one streaming block and one 8-slot tick."""
+    write_fcpe(tmp, seed=10)
+    t0 = time.perf_counter()
+    offline = end_to_end(tmp, "fcpe", "fcpe_offline")
+    if offline != main_counts:
+        raise AssertionError(f"launches with fcpe {offline}, with pm "
+                             f"{main_counts}")
+    against_cpu(tmp, ("fcpe",), "fcpe_against_cpu")
+    f0_phase_seconds("F1", t0)
+    t0 = time.perf_counter()
+    stream = streaming(tmp, f0method="fcpe", paths=(True,),
+                       phase="fcpe_streaming")
+    streaming_against_cpu(tmp, methods=("fcpe",),
+                          phase="fcpe_streaming_against_cpu")
+    f0_phase_seconds("F2", t0)
+    t0 = time.perf_counter()
+    tick = serving(tmp, BATCH_N, n_warm=3, n_timed=10, f0method="fcpe",
+                   modes=(False,), phase="fcpe_serving")
+    streams_against_sessions(tmp, BATCH_N, n_cpu=0, f0method="fcpe", n_own=2,
+                             fed_and_churn=False,
+                             phase="fcpe_streams_against_sessions")
+    f0_phase_seconds("F3", t0)
+    return offline, stream, tick
+
+
+def f0_network_profiles(tmp, crepe_path):
+    """F4's detail: the FCPE track alone (`fcpe_f0_device`) at the offline
+    (one 16 s bucket), streaming (one 4800-sample tail) and 8-stream tail
+    shapes, and CREPE's salience for the 10 s input's 1601 frames: median
+    ms of CUDA events, the device's busy ms and kernel launches from
+    torch.profiler, the top kernels, and the work counted from the
+    shapes (fp32 operations)."""
+    from tpu_rvc_torch.f0.crepe import CRePE
+    from tpu_rvc_torch.f0.device import fcpe_f0_device
+    from tpu_rvc_torch.f0.fcpe import FCPE
+    from tpu_rvc_torch.models.crepe import FILTERS, WIDTHS, crepe_salience
+    from tpu_rvc_torch.core.device import fp32_math
+
+    fcpe = FCPE(model_path=os.path.join(tmp, "assets", "fcpe", "fcpe.pt")
+                ).model
+    hid = fcpe.norm.normalized_shape[0]
+    n_in = fcpe.input_stem[0].in_channels
+    k = fcpe.net.encoder_layers[0].conformer.net[4].conv.kernel_size[0]
+    per_frame = 2 * (3 * n_in * hid + 3 * hid * hid + hid * fcpe.out_dims
+                     + len(fcpe.net.encoder_layers)
+                     * (hid * 4 * hid + k * 2 * hid + 2 * hid * hid))
+    rows = []
+    with torch.no_grad(), fp32_math():
+        for name, n, T in (("offline", 1, 256000), ("stream", 1, 4800),
+                           ("tick", BATCH_N, 4800)):
+            wav = torch.randn(n, T, device="cuda") * 0.1
+            run = lambda: fcpe_f0_device(wav, T // 160, 0.0, fcpe)  # noqa
+            ms = median_ms(run, iters=10, warmup=2)
+            busy, top = device_busy_ms(run)
+            rows.append(dict(
+                shape=[n, T], ms=ms, device_busy_ms=busy,
+                kernels=int(sum(c for _, _, c in top)),
+                gflop=per_frame * n * (T // 160 + 1) / 1e9,
+                top=[[nm[:50], t, c] for nm, t, c in top[:4]]))
+        say("fcpe_track_profile", model="hidden 512, 6 layers, kernel 31",
+            gflop_per_frame=per_frame / 1e9, rows=dict(zip(
+                ("offline", "stream", "tick"), rows)))
+        crepe = CRePE(model_path=crepe_path).model
+        wav = torch.randn(256000, device="cuda") * 0.1
+        run = lambda: crepe_salience(crepe, wav)  # noqa: E731
+        ms = median_ms(run, iters=3, warmup=1)
+        busy, top = device_busy_ms(run)
+    n_frames = 256000 // 160 + 1
+    flop, L, c_in = 2 * FILTERS[-1] * 4 * 360, 1024, 1
+    for i, (f, w) in enumerate(zip(FILTERS, WIDTHS)):
+        L_out = L // 4 if i == 0 else L
+        flop += 2 * w * c_in * f * L_out
+        L, c_in = L_out // 2, f
+    say("crepe_salience_profile", frames=n_frames, ms=ms,
+        device_busy_ms=busy, gflop_per_frame=flop / 1e9,
+        tflop_per_s=flop * n_frames / (busy * 1e-3) / 1e12 if busy else None,
+        top=[[nm[:50], t, c] for nm, t, c in top[:6]])
+
+
+def host_f0_conversions(tmp):
+    """F4: the 10 s voice through VC.vc_single with crepe (random CREPE
+    full weights in torchcrepe's layout, given to the pipeline's
+    generator), dio, harvest (filter_radius 3) and pm with a manual
+    curve, and through the pipeline with the pm track of the same input
+    precomputed (if_f0 = 2, as the model hash feeds it): one warm-up and
+    one timed run each, f0 ms (`times[1]`), wall ms, 6 K1 and 72 K2
+    launches; crepe and harvest on 1 s, card against CPU; the FCPE track
+    and the CREPE salience profiled alone; the serving scheduler refuses
+    harvest."""
+    from tpu_rvc_torch.audio.dsp import highpass_filter
+    from tpu_rvc_torch.audio.io import load_audio
+    from tpu_rvc_torch.ckpt.crepe_loader import random_crepe_reference_state
+    from tpu_rvc_torch.f0.crepe import CRePE
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.serve import SlotScheduler
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t0 = time.perf_counter()
+    crepe_path = os.path.join(tmp, "crepe_full.pth")
+    torch.save(random_crepe_reference_state(11), crepe_path)
+    wav = os.path.join(tmp, "voice_10s.wav")
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(os.path.join(tmp, "v2_48k.pth"))
+    pipe = vc.pipeline
+    pipe.f0_gen._estimators["crepe"] = CRePE(model_path=crepe_path)
+    n_expected = expected_len(160000, vc.x_pad, 480, 48000)
+    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    seen_times = []
+    inner = pipe.pipeline
+
+    def pipeline(*args, **kw):   # keeps the times of the last conversion
+        out = inner(*args, **kw)
+        seen_times.append(list(args[2]))
+        return out
+
+    pipe.pipeline = pipeline
+    t = np.arange(0.0, 10.0, 0.05)
+    manual = np.stack([t, 150 + 50 * np.sin(2 * np.pi * 0.2 * t)], 1)
+    # the input as vc_single hands it to the pipeline, and its pm track
+    # over the padded signal, as the pipeline's own host path computes it
+    x = load_audio(wav, 16000)
+    x = x / max(np.abs(x).max() / 0.95, 1.0)
+    x_pad = np.pad(highpass_filter(x), (pipe.t_pad, pipe.t_pad),
+                   mode="reflect")
+    track = pipe.f0_gen.calculate(x_pad, x_pad.shape[0] // 160, 0, "pm")
+    cases = {
+        "crepe": lambda: vc.vc_single(0, wav, f0_method="crepe")[1][1],
+        "dio": lambda: vc.vc_single(0, wav, f0_method="dio")[1][1],
+        "harvest": lambda: vc.vc_single(0, wav, f0_method="harvest",
+                                        filter_radius=3)[1][1],
+        "pm_manual_curve": lambda: vc.vc_single(0, wav, f0_method="pm",
+                                                f0_file=manual)[1][1],
+        "precomputed_pm_track": lambda: pipe.pipeline(
+            0, x, [0.0, 0.0, 0.0], 0, track, None, 0.0, 2, 3, 0, 0.25,
+            0.33),
+    }
+    rows = {}
+    for name, run in cases.items():
+        check_output(run(), n_expected, f"{name} warm-up")
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        audio = run()
+        wall = (time.perf_counter() - t1) * 1e3
+        counts = dict(launch_counts)
+        check_output(audio, n_expected, name)
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{want}")
+        rows[name] = dict(f0_ms=seen_times[-1][1] * 1e3, wall_ms=wall,
+                          launches=counts)
+    say("host_f0_conversions", input_s=10.0, model="v2/48k random weights",
+        crepe="full, random weights", cases=rows)
+    against_cpu(tmp, ("crepe", "harvest"), "host_f0_against_cpu",
+                estimators=lambda dev: {"crepe": CRePE(model_path=crepe_path,
+                                                       device=dev)})
+    f0_network_profiles(tmp, crepe_path)
+    engine = stream_engine(os.path.join(tmp, "v2_48k.pth"), tmp, "cuda")
+    try:
+        SlotScheduler(engine, 2, f0method="harvest", **STREAM)
+    except ValueError as e:
+        say("serving_refuses_host_f0", f0method="harvest", error=str(e))
+    else:
+        raise AssertionError("SlotScheduler took f0method='harvest'")
+    f0_phase_seconds("F4", t0)
+    return want
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1572,6 +1804,9 @@ def main():
         model, train_counts = train_full_width(tmp, exp)
         train_against_cpu(exp)
         trained_counts = trained_model_converts(tmp, model)
+        with contextlib.chdir(tmp):   # FCPE finds assets/fcpe/fcpe.pt here
+            fcpe_counts = fcpe_phases(tmp, main_counts)
+        host_f0_counts = host_f0_conversions(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -1581,6 +1816,9 @@ def main():
                                else serve_counts)[e["name"]]
         e["train_launches"] = train_counts[e["name"]]
         e["trained_model_launches"] = trained_counts[e["name"]]
+        (e["fcpe_launches"], e["fcpe_stream_launches"],
+         e["fcpe_batch_launches"]) = (c[e["name"]] for c in fcpe_counts)
+        e["host_f0_launches"] = host_f0_counts[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -231,3 +231,20 @@ def scheduler_pair(world, n_slots=2, f0method="pm", jax_graph=None, **kw):
     if jax_graph is not None:
         jsched.fused, jsched.engine = jax_graph, jax_graph.engine
     return sched, jsched, clock
+
+
+def spy_chunks(pipe, store):
+    """Make `pipe` (either package's Pipeline) record, as float64 numpy, the
+    float audio every vc_chunk returns: the host path's output before its
+    RMS mix and int16 scaling.  Returns the method it wraps, for the
+    caller to put back."""
+    inner = pipe.vc_chunk
+
+    def spy(*args, **kw):
+        out = inner(*args, **kw)
+        store.append(out.double().numpy() if torch.is_tensor(out)
+                     else np.asarray(out, np.float64))
+        return out
+
+    pipe.vc_chunk = spy
+    return inner

@@ -18,6 +18,8 @@ from tpu_rvc.utils.mcd import mcd
 
 from tpu_rvc_torch.audio.io import save_wav
 from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
+from tpu_rvc_torch.f0.fcpe import FCPE
+from tpu_rvc_torch.models.fcpe import CFNaiveMelPE
 from tpu_rvc_torch.models.synthesizer import Synthesizer
 from tpu_rvc_torch.pipeline.vc import VC, Pipeline
 from tpu_rvc_torch.retrieval.index import FeatureIndex
@@ -97,7 +99,7 @@ def test_pipeline_matches_jax(models, pipelines, dur, rms_mix_rate):
     assert times[2] > 0
 
 
-def test_vc_get_vc_from_pth_matches_jax(models, tmp_path):
+def test_vc_get_vc_from_pth_matches_jax(models, tmp_path, monkeypatch):
     """VC.get_vc on a small-model .pth written by tpu_rvc's save_pth (fp16
     weights, weight norm as (g, v)), then vc_single: the same conversion
     as tpu_rvc's VC given the same HuBERT."""
@@ -123,9 +125,21 @@ def test_vc_get_vc_from_pth_matches_jax(models, tmp_path):
     assert sr == sr_j == SR and info.startswith("npy:")
     assert_same_conversion(got, np.asarray(want))
 
-    for method in ("dio", "harvest", "crepe", "fcpe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            vc.vc_single(0, wav, f0_method=method)
+    # dio and harvest convert on the host path, fcpe with an estimator
+    # given; crepe without weights and fcpe without its checkpoint raise
+    for method in ("dio", "harvest"):
+        info, (sr, out) = vc.vc_single(0, wav, **dict(kw, f0_method=method))
+        assert sr == SR and out.dtype == np.int16 and out.shape == got.shape
+        assert np.abs(out).max() > 0 and info.startswith("npy:")
+    monkeypatch.chdir(tmp_path)   # no assets/fcpe/ here
+    with pytest.raises(ValueError, match="CREPE requires weights"):
+        vc.vc_single(0, wav, f0_method="crepe")
+    with pytest.raises(FileNotFoundError, match="fcpe"):
+        vc.vc_single(0, wav, f0_method="fcpe")
+    vc.pipeline.f0_gen._estimators["fcpe"] = FCPE(model=CFNaiveMelPE(
+        hidden_dims=32, n_layers=1), device="cpu")
+    _, (_, out) = vc.vc_single(0, wav, **dict(kw, f0_method="fcpe"))
+    assert out.shape == got.shape and np.abs(out).max() > 0
     # rmvpe is ported: its default call needs the checkpoint and says so
     vc.pipeline.f0_gen.rmvpe_root = tmp_path / "no_rmvpe"
     with pytest.raises(FileNotFoundError):

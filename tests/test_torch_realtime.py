@@ -348,12 +348,13 @@ def test_fused_graph_state_and_fetch(world):
 # ---------------------------------------------------------------------------
 
 
-def test_no_quiet_fallbacks(world, tmp_path):
+def test_no_quiet_fallbacks(world, tmp_path, monkeypatch):
     """Noise reduction is a host-path feature: a session with either flag
     runs there and builds no fused graph, as the JAX session; a missing
     rmvpe.pt raises where the estimator is built (the fused path's
     construction, the host path's first block) instead of switching path
-    or estimator; fcpe does not turn into pm."""
+    or estimator; fcpe without its checkpoint raises too and does not
+    turn into pm."""
     port = rt.RealtimeVC(hubert=world["hub"], synth=world["synth"],
                          rmvpe_root=str(tmp_path), deterministic=True,
                          noise_scale=0.0, device="cpu")
@@ -369,8 +370,12 @@ def test_no_quiet_fallbacks(world, tmp_path):
     assert sess._fused is None and sess._fused_saved is None
     with pytest.raises(FileNotFoundError):
         sess.feed(np.zeros(sess.block_frame, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        rt.StreamSession(port, 16000, f0method="fcpe", **SESSION)
+    monkeypatch.chdir(tmp_path)   # no assets/fcpe/ here
+    for fused in (True, False):
+        with pytest.raises(FileNotFoundError, match="fcpe"):
+            rt.StreamSession(port, 16000, f0method="fcpe", fused=fused,
+                             **SESSION).feed(
+                np.zeros(sess.block_frame, np.float32))
 
 
 def test_realtime_device_rule(world):

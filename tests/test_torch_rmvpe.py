@@ -201,10 +201,13 @@ def test_rmvpe_f0_device_matches_jax(tiny, n, up_key):
     assert (f.numpy() > 0).all()
 
 
-def test_rmvpe_estimator_and_generator_match_jax(tiny):
+def test_rmvpe_estimator_and_generator_match_jax(tiny, tmp_path,
+                                                 monkeypatch):
     """The host estimator (`RMVPE.compute_f0`, numpy decode) and the
-    dispatcher's `calculate`, against the JAX ones; the estimators that
-    are not ported name the ROADMAP item."""
+    dispatcher's `calculate`, against the JAX ones; dio and harvest give
+    the JAX tracks; crepe without weights raises ValueError, as in the
+    JAX package, and fcpe without its checkpoint FileNotFoundError, where
+    the JAX one runs pm."""
     port, jmodel, jvars = tiny
     wav = voice(8000, 8)
     jest = JaxRMVPE(variables=jvars)
@@ -219,14 +222,16 @@ def test_rmvpe_estimator_and_generator_match_jax(tiny):
     gen, jgen = Generator("none", x_pad=0, device="cpu"), JaxGenerator(
         "none", x_pad=0)
     gen._estimators["rmvpe"], jgen._estimators["rmvpe"] = est, jest
-    for method in ("rmvpe", "pm"):
+    for method in ("rmvpe", "pm", "dio", "harvest"):
         c, f = gen.calculate(wav, None, 2.0, method)
         cj, fj = jgen.calculate(wav, None, 2.0, method, None)
         np.testing.assert_array_equal(c, cj)
         np.testing.assert_allclose(f, fj, rtol=1e-4)
-    for method in ("dio", "harvest", "crepe", "fcpe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            gen.calculate(wav, None, 0.0, method)
+    monkeypatch.chdir(tmp_path)   # no assets/fcpe/ here
+    with pytest.raises(ValueError, match="CREPE requires weights"):
+        gen.calculate(wav, None, 0.0, "crepe")
+    with pytest.raises(FileNotFoundError, match="fcpe"):
+        gen.calculate(wav, None, 0.0, "fcpe")
     with pytest.raises(ValueError, match="not supported"):
         gen.calculate(wav, None, 0.0, "yin")
 

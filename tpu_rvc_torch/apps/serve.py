@@ -261,7 +261,10 @@ def main(argv=None):
     p.add_argument("--block-time", type=float, default=0.25)
     p.add_argument("--crossfade-time", type=float, default=0.05)
     p.add_argument("--extra-time", type=float, default=2.5)
-    p.add_argument("--f0-method", default="rmvpe")
+    p.add_argument("--f0-method", default="rmvpe",
+                   choices=("pm", "rmvpe", "fcpe"),
+                   help="f0 on the card inside the batched tick; fcpe reads "
+                        "assets/fcpe/fcpe.pt")
     p.add_argument("--f0-up-key", type=float, default=0.0)
     p.add_argument("--index-rate", type=float, default=0.0)
     p.add_argument("--pipelined", action="store_true",

@@ -53,6 +53,27 @@ def load_rmvpe(path: str, device=None):
     return model.to(dev).eval()
 
 
+def draw_batchnorm_statistics(sd: Dict[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+    """A folded state_dict -> the reference layout: every FoldedBN
+    (`scale`, `bias`) becomes a BatchNorm with drawn weight, bias, running
+    mean and running variance rather than the identity, from torch's
+    global generator; every other key is copied."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        prefix, _, leaf = k.rpartition(".")
+        if leaf == "scale":
+            n = v.shape[0]
+            out[f"{prefix}.weight"] = torch.empty(n).uniform_(0.5, 1.5)
+            out[f"{prefix}.bias"] = torch.randn(n) * 0.1
+            out[f"{prefix}.running_mean"] = torch.randn(n) * 0.1
+            out[f"{prefix}.running_var"] = torch.empty(n).uniform_(0.5, 1.5)
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(1)
+        elif f"{prefix}.scale" not in sd:
+            out[k] = v.clone()
+    return out
+
+
 def random_rmvpe_reference_state(seed: int, **e2e_kwargs
                                  ) -> Dict[str, torch.Tensor]:
     """A random-weight E2E(**e2e_kwargs) as a state_dict in the reference
@@ -63,18 +84,4 @@ def random_rmvpe_reference_state(seed: int, **e2e_kwargs
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        sd = E2E(**e2e_kwargs).state_dict()
-        out: Dict[str, torch.Tensor] = {}
-        for k, v in sd.items():
-            prefix, _, leaf = k.rpartition(".")
-            if leaf == "scale":
-                n = v.shape[0]
-                out[f"{prefix}.weight"] = torch.empty(n).uniform_(0.5, 1.5)
-                out[f"{prefix}.bias"] = torch.randn(n) * 0.1
-                out[f"{prefix}.running_mean"] = torch.randn(n) * 0.1
-                out[f"{prefix}.running_var"] = torch.empty(n).uniform_(0.5,
-                                                                        1.5)
-                out[f"{prefix}.num_batches_tracked"] = torch.tensor(1)
-            elif f"{prefix}.scale" not in sd:
-                out[k] = v.clone()
-    return out
+        return draw_batchnorm_statistics(E2E(**e2e_kwargs).state_dict())

@@ -50,11 +50,26 @@ def coarse_f0(f0: np.ndarray, f0_min: float = F0_MIN,
 
 
 def post_process(f0: np.ndarray, f0_up_key: float, f0_min: float = F0_MIN,
-                 f0_max: float = F0_MAX) -> Tuple[np.ndarray, np.ndarray]:
-    """Transpose by f0_up_key semitones and quantise (reference
-    rvc/f0/gen.py:11-41, without the manual-curve splice, which is not
-    ported yet) -> (coarse int32, f0 float32)."""
+                 f0_max: float = F0_MAX, manual_f0: Optional[np.ndarray] = None,
+                 x_pad: float = 0.0, tf0: int = 100
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Transpose by f0_up_key semitones, splice in a manual curve, and
+    quantise (reference rvc/f0/gen.py:11-41) -> (coarse int32, f0 float32).
+
+    manual_f0: (n, 2) rows of (seconds, Hz).  The curve is resampled to
+    `delta_t` frames of 10 ms and written over the transposed track from
+    frame int(x_pad * tf0), where the padded signal's own audio starts;
+    frames past the track's end are dropped.  tf0 is frames a second."""
     f0 = np.asarray(f0, np.float64) * (2.0 ** (f0_up_key / 12.0))
+    if manual_f0 is not None:
+        manual_f0 = np.asarray(manual_f0, np.float64)
+        delta_t = int(np.round(
+            (manual_f0[:, 0].max() - manual_f0[:, 0].min()) * tf0 + 1))
+        replace = np.interp(np.arange(delta_t), manual_f0[:, 0] * 100,
+                            manual_f0[:, 1])
+        start = int(x_pad * tf0)
+        n = f0[start:start + len(replace)].shape[0]
+        f0[start:start + n] = replace[:n]
     return coarse_f0(f0, f0_min, f0_max), f0.astype(np.float32)
 
 

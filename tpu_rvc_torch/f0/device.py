@@ -1,5 +1,5 @@
-"""On-device f0 post-processing and the pm and RMVPE pitch tracks (port of
-tpu_rvc/f0/device.py:20-141).
+"""On-device f0 post-processing and the pm, RMVPE and FCPE pitch tracks
+(port of tpu_rvc/f0/device.py:20-155).
 
 Decode, resize, gap interpolation, transpose and coarse mel quantization
 stay on the device between the estimator and the synthesizer, as in the
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpu_rvc_torch.models.fcpe import fcpe_infer
 from .base import F0_MAX, F0_MIN
 from .pm import pm_track
 from .rmvpe import rmvpe_salience
@@ -117,3 +118,33 @@ def rmvpe_f0_device(wav: torch.Tensor, p_len: int, f0_up_key: float,
     f0 = 10.0 * torch.pow(2.0, cents / 1200.0)
     f0 = torch.where(f0 == 10.0, torch.zeros_like(f0), f0)
     return post_process(interpolate_f0(resize_f0(f0, p_len)), f0_up_key)
+
+
+def fcpe_f0_device(wav: torch.Tensor, p_len: int, f0_up_key: float,
+                   fcpe_model, threshold: float = 0.006):
+    """Device-side FCPE pitch: mel -> CFNaiveMelPE -> local_argmax decode
+    -> resize -> interpolate -> transpose -> quantise.  wav: (T,) or
+    (N, T) at 16 kHz -> (coarse, f0) of p_len frames a signal; the model
+    takes the N signals as one batch."""
+    f0 = fcpe_infer(fcpe_model, wav.reshape(-1, wav.shape[-1]), threshold)
+    f0 = f0.reshape(*wav.shape[:-1], f0.shape[-1])
+    return post_process(interpolate_f0(resize_f0(f0, p_len)), f0_up_key)
+
+
+DEVICE_F0 = ("pm", "rmvpe", "fcpe")  # the methods the fused graphs compute
+
+
+def device_f0(method: str, wav: torch.Tensor, p_len: int, f0_up_key: float,
+              model=None):
+    """The fused graphs' f0 dispatch: (coarse, f0) of p_len frames a signal
+    from the device-side track of `method` (`model` is the RMVPE or FCPE
+    network).  Any other method raises ValueError: none is replaced by
+    another."""
+    if method == "pm":
+        return pm_f0_device(wav, p_len, f0_up_key)
+    if method == "rmvpe":
+        return rmvpe_f0_device(wav, p_len, f0_up_key, model)
+    if method == "fcpe":
+        return fcpe_f0_device(wav, p_len, f0_up_key, model)
+    raise ValueError(f"f0 method {method!r} is not computed on the device "
+                     f"(those are {', '.join(DEVICE_F0)})")

@@ -2,8 +2,12 @@
 rvc/f0/gen.py:44 `Generator`).
 
 Builds the requested estimator on first use, on the dispatcher's device,
-and keeps it.  `pm` and `rmvpe` are ported; `dio`, `harvest`, `crepe` and
-`fcpe` raise NotImplementedError.  Post-processing is `base.post_process`.
+and keeps it: pm, dio, harvest, crepe, rmvpe and fcpe.  rmvpe reads
+`rmvpe_root`/rmvpe.pt and fcpe the first of `f0/fcpe.py` DEFAULT_PATHS,
+and each raises FileNotFoundError without its file; crepe has no default
+file and raises ValueError unless its estimator is given in
+`_estimators`.  Post-processing (transpose, manual-curve splice, coarse
+quantisation) is `base.post_process`.
 """
 
 from __future__ import annotations
@@ -15,12 +19,6 @@ import numpy as np
 
 from tpu_rvc_torch.core.device import resolve_device
 from .base import F0_MAX, F0_MIN, post_process
-
-PORTED = ("pm", "rmvpe")
-_NOT_PORTED = ("dio", "harvest", "crepe", "fcpe")
-F0_TODO = ("f0_method={!r} is not ported to tpu_rvc_torch yet: 'pm' and "
-           "'rmvpe' are (ROADMAP.md queue A, 'Remaining f0 estimators': "
-           "FCPE, CREPE, DIO and Harvest)")
 
 
 class Generator:
@@ -37,16 +35,27 @@ class Generator:
     def _get(self, method: str):
         if method in self._estimators:
             return self._estimators[method]
+        args = (self.window, F0_MIN, F0_MAX, self.sr)
         if method == "pm":
             from .pm import PM
-            est = PM(self.window, F0_MIN, F0_MAX, self.sr, self.device)
+            est = PM(*args, self.device)
+        elif method == "dio":
+            from .dio import Dio
+            est = Dio(*args)
+        elif method == "harvest":
+            from .harvest import Harvest
+            est = Harvest(*args)
+        elif method == "crepe":
+            from .crepe import CRePE
+            est = CRePE(*args, device=self.device)
         elif method == "rmvpe":
             from .rmvpe import RMVPE
             est = RMVPE(str(self.rmvpe_root / "rmvpe.pt"),
                         hop_length=self.window, sampling_rate=self.sr,
                         device=self.device)
-        elif method in _NOT_PORTED:
-            raise NotImplementedError(F0_TODO.format(method))
+        elif method == "fcpe":
+            from .fcpe import FCPE
+            est = FCPE(*args, device=self.device)
         else:
             raise ValueError(f"f0 method {method} not supported")
         self._estimators[method] = est
@@ -54,12 +63,20 @@ class Generator:
 
     def calculate(self, x: np.ndarray, p_len: Optional[int],
                   f0_up_key: float, f0_method: str,
-                  filter_radius: Optional[Union[int, float]] = None
+                  filter_radius: Optional[Union[int, float]] = None,
+                  manual_f0: Optional[np.ndarray] = None
                   ) -> Tuple[np.ndarray, np.ndarray]:
-        """x at `sr` -> (coarse pitch int32, f0 Hz float32), numpy."""
+        """x at `sr` -> (coarse pitch int32, f0 Hz float32), numpy.  harvest
+        median-filters with `filter_radius` when it is above 2; rmvpe
+        decodes at the threshold 0.03; the others take their defaults.
+        `manual_f0` ((n, 2) of seconds, Hz) is spliced in from x_pad
+        seconds on."""
         est = self._get(f0_method)
-        if f0_method == "rmvpe":
+        if f0_method == "harvest":
+            f0 = est.compute_f0(x, p_len=p_len, filter_radius=filter_radius)
+        elif f0_method == "rmvpe":
             f0 = est.compute_f0(x, p_len=p_len, filter_radius=0.03)
         else:
             f0 = est.compute_f0(x, p_len=p_len)
-        return post_process(f0, f0_up_key, F0_MIN, F0_MAX)
+        return post_process(f0, f0_up_key, F0_MIN, F0_MAX, manual_f0,
+                            self.x_pad, self.sr // self.window)

@@ -42,7 +42,7 @@ import torch
 from tpu_rvc_torch.audio.dsp import _interp_to, rms_envelope
 from tpu_rvc_torch.audio.torchgate import TorchGate
 from tpu_rvc_torch.core.device import fp32_math, resolve_device
-from tpu_rvc_torch.f0.device import pm_f0_device, rmvpe_f0_device
+from tpu_rvc_torch.f0.device import DEVICE_F0, device_f0
 from tpu_rvc_torch.f0.gen import Generator as F0Generator
 from tpu_rvc_torch.ops.resample import resample_poly
 from tpu_rvc_torch.retrieval.index import FeatureIndex
@@ -321,8 +321,9 @@ class StreamSession:
     configuration allows it (no formant shift, no RMS mix) and raises if
     that path cannot be built; `fused=False` asks for the host block
     path.  Noise reduction (`input_noise_reduce`, `output_noise_reduce`)
-    is the host path's: with either flag the session runs there, as the
-    JAX session does."""
+    and the f0 methods the device does not compute (dio, harvest, crepe)
+    are the host path's: the session runs there, as the JAX session does
+    (`tpu_rvc/pipeline/rt.py:412-414`)."""
 
     def __init__(self, engine: RealtimeVC, samplerate: int = 48000,
                  block_time: float = 0.25, crossfade_time: float = 0.05,
@@ -371,7 +372,8 @@ class StreamSession:
         self._fused = None
         self._fused_saved = None  # parked while a slider rules it out
         self._fused_state = None
-        if fused and engine.if_f0 in (0, 1) and not noise_reduce:
+        if (fused and engine.if_f0 in (0, 1) and f0method in DEVICE_F0
+                and not noise_reduce):
             self._fused_saved = FusedStreamGraph(
                 engine, stream_sr=samplerate, block_frame=self.block_frame,
                 ctx_frame=2 * self.zc, total_len=geo.total,
@@ -595,13 +597,15 @@ class FusedStreamGraph:
         self.f0method = f0method
         self.protect = protect
         self.use_f0 = engine.if_f0 == 1
-        # built here, so that a missing checkpoint or an estimator that is
-        # not ported raises now and not in the first block
+        # checked and built here, so that a host-only method or a missing
+        # checkpoint raises now and not in the first block; where the JAX
+        # graph computes pm for a method it does not know, this one raises
+        if f0method not in DEVICE_F0:
+            raise ValueError(f"f0 method {f0method!r} is not computed on the "
+                             f"device (those are {', '.join(DEVICE_F0)})")
         self._f0_model = None
-        if self.use_f0:
-            est = engine.f0_gen._get(f0method)
-            if f0method == "rmvpe":
-                self._f0_model = est.model
+        if self.use_f0 and f0method != "pm":
+            self._f0_model = engine.f0_gen._get(f0method).model
         self._step = 0
         self._staging: Dict[str, Tuple[torch.Tensor, object]] = {}
 
@@ -637,12 +641,8 @@ class FusedStreamGraph:
             tail = min(f0_tail_samples(self.block_16k, self.f0method),
                        self.total_16k)
             with span("f0", eng.device):
-                if self.f0method == "rmvpe":
-                    c, f = rmvpe_f0_device(wav16[:, -tail:], tail // WINDOW,
-                                           eng.f0_up_key, self._f0_model)
-                else:
-                    c, f = pm_f0_device(wav16[:, -tail:], tail // WINDOW,
-                                        eng.f0_up_key)
+                c, f = device_f0(self.f0method, wav16[:, -tail:],
+                                 tail // WINDOW, eng.f0_up_key, self._f0_model)
             shift = self.block_16k // WINDOW
             n_keep = c.shape[1] - 4   # drop 3 head + 1 tail frames
             keep = slice(shift, CACHE_FRAMES - n_keep + shift)

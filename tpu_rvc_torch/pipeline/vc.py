@@ -5,7 +5,9 @@ Per utterance:
   1. 48 Hz Butterworth high-pass (host, zero phase)
   2. audio longer than x_max s is split at the quietest sample near every
      x_center-second boundary (searched within +-x_query s)
-  3. f0 (pm or RMVPE) over the whole reflect-padded signal, on the device
+  3. f0 over the whole reflect-padded signal: pm, RMVPE and FCPE on the
+     device; dio, harvest and crepe (salience on the device) decoded on
+     the host; or a precomputed track, or a manual curve spliced in
   4. per chunk: HuBERT -> retrieval blend -> 2x time repeat -> protect
      mask -> Synthesizer.infer; the x_pad reflect padding is trimmed
   5. RMS envelope mix and int16 peak scaling (on the device for the single
@@ -15,11 +17,13 @@ Chunk lengths are bucketed to whole seconds, with true lengths driving
 the masks, exactly as the JAX graphs are; that keeps the port's output
 sample-aligned with the reference package.  The single-chunk path
 (`_full`, the JAX `_full_graph`) runs f0, conversion, trimming, RMS mix
-and int16 scaling on the device and fetches once.  `times` accumulates
-[npy, f0, infer] seconds like the reference.  The pm and RMVPE f0
-estimators are ported (`rmvpe_root` names the directory of `rmvpe.pt`,
-which must exist once f0_method="rmvpe" is asked for); dio, harvest, crepe
-and fcpe raise NotImplementedError.
+and int16 scaling on the device and fetches once; it takes the utterance
+only where the JAX package does (`tpu_rvc/pipeline/vc.py:342-344`): no
+silence split, no manual curve, and pm, rmvpe or fcpe, or no f0.  `times`
+accumulates [npy, f0, infer] seconds like the reference.  `rmvpe_root`
+names the directory of `rmvpe.pt`, which must exist once f0_method="rmvpe"
+is asked for; fcpe needs its checkpoint (`f0/fcpe.py`), crepe an
+estimator given in `f0_gen._estimators`.
 """
 
 from __future__ import annotations
@@ -35,8 +39,7 @@ import torch.nn.functional as F
 
 from tpu_rvc_torch.audio.dsp import change_rms, highpass_filter
 from tpu_rvc_torch.core.device import fp32_math, resolve_device
-from tpu_rvc_torch.f0.device import pm_f0_device, rmvpe_f0_device
-from tpu_rvc_torch.f0.gen import F0_TODO, PORTED
+from tpu_rvc_torch.f0.device import DEVICE_F0, device_f0, pm_f0_device
 from tpu_rvc_torch.f0.gen import Generator as F0Generator
 from tpu_rvc_torch.ops.resample import linear_interp_1d, resample_poly
 from tpu_rvc_torch.retrieval.index import FeatureIndex
@@ -168,7 +171,7 @@ class Pipeline:
     @torch.no_grad()
     def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
               index_arrays, index_rate: float, protect: float,
-              rms_mix_rate: float, noise_seed: int, f0_method: str = "pm"):
+              rms_mix_rate: float, noise_seed: int, f0_method: str):
         """Single-chunk conversion of the bucketed, padded utterance
         (the JAX `_full_graph`): f0 + conversion + pad trim + RMS mix +
         int16, all on the device.  audio: (L,) with L a whole bucket."""
@@ -179,12 +182,10 @@ class Pipeline:
         pit = pitf = None
         if use_f0:
             with span("f0", self.device):
-                if f0_method == "rmvpe":
-                    pitch, pitchf = rmvpe_f0_device(
-                        audio, p_len, f0_up_key,
-                        self.f0_gen._get("rmvpe").model)
-                else:
-                    pitch, pitchf = pm_f0_device(audio, p_len, f0_up_key)
+                model = (self.f0_gen._get(f0_method).model
+                         if f0_method in ("rmvpe", "fcpe") else None)
+                pitch, pitchf = device_f0(f0_method, audio, p_len, f0_up_key,
+                                          model)
             pit, pitf = pitch[:p_len_static], pitchf[:p_len_static]
         out = self._convert(audio, L, sid, pit, pitf, index_arrays,
                             index_rate, protect, self._generator(noise_seed))
@@ -231,14 +232,10 @@ class Pipeline:
                  if_f0: int, filter_radius, resample_sr: int,
                  rms_mix_rate: float, protect: float, f0_file=None,
                  noise_seed: int = 0) -> np.ndarray:
-        """Full conversion (reference pipeline, pipeline.py:186) -> int16."""
-        if if_f0 and f0_method not in PORTED:
-            raise NotImplementedError(F0_TODO.format(f0_method))
-        if f0_file is not None or if_f0 not in (0, 1):
-            raise NotImplementedError(
-                "manual f0 curves and precomputed f0 tracks are not ported "
-                "to tpu_rvc_torch yet (ROADMAP.md queue A: 'Remaining f0 "
-                "estimators')")
+        """Full conversion (reference pipeline, pipeline.py:186) -> int16.
+        if_f0 == 2 takes a precomputed track: `f0_method` is then the
+        (coarse pitch, f0) pair, trimmed to the padded input's frames.
+        f0_file: a manual curve, (n, 2) rows of (seconds, Hz)."""
         use_f0 = bool(if_f0)
         audio = highpass_filter(np.asarray(audio, np.float32))
         opt_ts = silence_chunk_bounds(audio, self.t_center, self.t_query,
@@ -246,7 +243,8 @@ class Pipeline:
         audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
         index_arrays = self._index_arrays(index, index_rate)
 
-        if not opt_ts:
+        if not opt_ts and f0_file is None and (
+                if_f0 == 0 or (if_f0 == 1 and f0_method in DEVICE_F0)):
             # bucket to the 1 s grid; the tail is reflect-extended so the
             # RMS envelope and int16 peak see audio-like samples, and the
             # output is trimmed back to the true length
@@ -280,16 +278,22 @@ class Pipeline:
         if use_f0:
             t0 = time.time()
             with span("f0", self.device):
-                if f0_method == "pm":
+                if if_f0 == 2:   # the track itself (reference :268)
+                    c, f = f0_method
+                elif f0_method == "pm" and f0_file is None:
                     Lb = _bucket(audio_pad.shape[0])
                     pitch, pitchf = pm_f0_device(
                         F.pad(audio_pad_dev, (0, Lb - audio_pad.shape[0])),
                         Lb // WINDOW, float(f0_up_key))
-                else:  # the estimator on the device, its decode in numpy
+                else:  # the estimator, its decode and the splice in numpy
                     c, f = self.f0_gen.calculate(
-                        audio_pad, p_len, f0_up_key, f0_method, filter_radius)
-                    pitch = torch.as_tensor(c, device=self.device)
-                    pitchf = torch.as_tensor(f, device=self.device)
+                        audio_pad, p_len, f0_up_key, f0_method, filter_radius,
+                        f0_file)
+                if pitch is None:
+                    pitch = torch.as_tensor(np.asarray(c, np.int32),
+                                            device=self.device)
+                    pitchf = torch.as_tensor(np.asarray(f, np.float32),
+                                             device=self.device)
             pitch, pitchf = pitch[:p_len], pitchf[:p_len]
             times[1] += time.time() - t0
 

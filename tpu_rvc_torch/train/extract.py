@@ -7,7 +7,8 @@ Outputs per utterance, the layout the trainer reads:
   2b-f0nsf/<name>.npy           continuous f0 (Hz)
   3_feature{256,768}/<name>.npy HuBERT features (T, D)
 
-f0 goes through the port's `f0/gen.py` (pm, rmvpe); the features through
+f0 goes through the port's `f0/gen.py` (any of its six methods; harvest
+median-filters with radius 3, as the reference does); the features through
 the port's HuBERT on `device` (the card unless the caller asks for the
 CPU), each utterance zero-padded to whole seconds with its padding mask,
 as the JAX pass buckets its compiles (`:82-97`).
