@@ -109,6 +109,23 @@ Phases, one line of output each (any failure exits non-zero):
      and 8-stream shapes) and the CREPE salience (1601 frames) alone:
      CUDA-event ms, busy ms, kernel launches, work; SlotScheduler refuses
      harvest; each F phase prints its seconds;
+ M1. ONNX: the v2/48k model exported at T = 1024 and HuBERT-base (seed 0)
+     at 160000 samples, on the card (seconds, nodes, MB); OnnxRVC on the
+     card converts the 10 s voice with pm, 1 warm-up + 3 timed: wall ms,
+     each graph's CUDA-event ms, busy ms and operations, peak memory, no
+     kernel launch; the graph against Synthesizer.infer on the card with
+     the same rnd (relative L2 < 1e-4); the synthesizer at T = 200 and
+     ContentVec traced on the card and on the CPU, run on the card
+     (relative L2 < 1e-4); VC's 10 s pm conversion of the same model;
+ M2. `.pt2`: infer at T = 1024 traced and saved on the CPU, loaded onto
+     the card, against infer there (relative L2 < 1e-4); load seconds
+     beside load_synthesizer's, run ms; the noisy variant runs finite;
+ M3. the checkpoint tools: merge two random v2/48k models (alpha 0.3),
+     vc_single 10 s with the merged one (6 K1, 72 K2, recorded in the
+     kernels line), change_info, extract a small model from T2's G_*.pth
+     and its model hash on the card and on the CPU (equal, or similarity
+     >= 0.998), another model's hash below that, ids and seconds; each M
+     phase prints its seconds;
 then one JSON line of kernels, the card line again, and the result line.
 """
 
@@ -706,6 +723,51 @@ def stage_key_us(dec, reps=200):
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+def export_check_us(sess, audio, first, reps=100000):
+    """Host µs one block spends on what keeps `torch.export` off the
+    kernels and the hash's noise off the card's generator: the port's calls
+    of `torch.compiler.is_exporting()` (each attention layer, each decoder
+    stage) and of the noise draws' wrapper (`core/device.py` `_draw`, a
+    device move on top of the draw).  Counts one block's calls, then times
+    each call alone -> (checks, draws, µs a check, µs a wrapper, total)."""
+    from tpu_rvc_torch.core import device as device_mod
+
+    real_check, real_draw = torch.compiler.is_exporting, device_mod._draw
+    n = {"check": 0, "draw": 0}
+
+    def counted_check():
+        if sys._getframe(1).f_globals["__name__"].startswith("tpu_rvc_torch"):
+            n["check"] += 1
+        return real_check()
+
+    def counted_draw(*args):
+        n["draw"] += 1
+        return real_draw(*args)
+
+    torch.compiler.is_exporting, device_mod._draw = counted_check, counted_draw
+    try:
+        feed_blocks(sess, audio, first, 1)
+    finally:
+        torch.compiler.is_exporting, device_mod._draw = real_check, real_draw
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        real_check()
+    check_us = (time.perf_counter() - t0) / reps * 1e6
+    like = torch.zeros(1, device="cuda")
+    fn = lambda shape, **kw: like  # noqa: E731  the draw itself left out
+    wrapped = lambda: real_draw(fn, (1,), None, like)  # noqa: E731  as
+    t0 = time.perf_counter()                           # draw_normal does
+    for _ in range(reps):
+        wrapped()
+    wrap_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn((1,), generator=None, device=like.device, dtype=like.dtype)
+    wrap_us -= (time.perf_counter() - t0) / reps * 1e6
+    return (n["check"], n["draw"], check_us, wrap_us,
+            n["check"] * check_us + n["draw"] * wrap_us)
+
+
 def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4, f0method="rmvpe",
               paths=(True, False), phase="streaming"):
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -754,8 +816,13 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4, f0method="rmvpe",
             busy, top = device_busy_ms(lambda: feed_blocks(
                 sess, audio, n_warm + n_timed, n_profiled))
         wall = float(np.median(walls))
+        checks, draws, check_us, wrap_us, added_us = export_check_us(
+            sess, audio, n_warm + n_timed + n_profiled - 1)
         say(phase, path="fused" if fused else "host",
             stage_key_us_per_block=stage_key_us(sess.engine.synth.dec),
+            export_checks_per_block=checks, noise_draws_per_block=draws,
+            us_per_export_check=check_us, us_per_draw_wrapper=wrap_us,
+            export_check_us_per_block=added_us,
             model="v2/48k random weights", f0method=f0method,
             index_rows=10000, block_s=0.25, window_frames=geo.total // geo.zc,
             blocks=n_timed, wall_ms_median=wall,
@@ -1762,6 +1829,293 @@ def host_f0_conversions(tmp):
     return want
 
 
+# ---------------------------------------------------------------------------
+# phases M1-M3: ONNX, .pt2 and the checkpoint tools at full width
+# ---------------------------------------------------------------------------
+
+ONNX_T = 1024          # frames of the exported graph: 10 s is 998
+VEC_SAMPLES = 160000   # 10 s at 16 kHz
+# an exported graph against infer, or traced on the card against the CPU:
+# sound runs read 0.0-4.6e-6 relative L2, the .pt2 with cuDNN in TF32
+# read 6.8e-4
+EXPORT_REL = 1e-4
+# one model's hash on the card against the CPU read 0.999256-0.999978; a
+# 1% change of one weight about 0.9977, another model under 0.5
+SAME_MODEL = 0.998
+
+
+def phase_seconds(name, t0):
+    say("phase_seconds", phase_name=name, seconds=time.perf_counter() - t0)
+
+
+def onnx_graph_args(T, seed, dev):
+    """(phone, lengths, pitch, pitchf, ds, rnd) for a v2/48k graph at T."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(rng.standard_normal((1, T, 768)).astype(np.float32)),
+            torch.tensor([T], device=dev),
+            t(rng.integers(1, 255, (1, T)).astype(np.int64)),
+            t(rng.uniform(80, 400, (1, T)).astype(np.float32)),
+            torch.tensor([0], device=dev),
+            t(rng.standard_normal((1, T, 192)).astype(np.float32)))
+
+
+def export_pair(tmp, model, hubert, T, n_samples, dev, tag):
+    """The synthesizer at T and ContentVec at n_samples as ONNX, traced on
+    `dev` -> (synth path, vec path, {what: seconds, nodes, MB})."""
+    from tpu_rvc_torch.ckpt.export import export_onnx
+    from tpu_rvc_torch.ckpt.onnx_reader import load_onnx
+    from tpu_rvc_torch.ckpt.torch2onnx import export_hubert_onnx
+
+    paths = (os.path.join(tmp, f"synth_{tag}.onnx"),
+             os.path.join(tmp, f"vec_{tag}.onnx"))
+    stats = {}
+    for name, path, run in (
+            ("synth", paths[0], lambda: export_onnx(model, paths[0], T=T,
+                                                    device=dev)),
+            ("vec", paths[1], lambda: export_hubert_onnx(
+                hubert, n_samples, path=paths[1]))):
+        t0 = time.perf_counter()
+        run()
+        secs = time.perf_counter() - t0
+        stats[name] = dict(seconds=secs,
+                           nodes=len(load_onnx(path).nodes),
+                           mb=os.path.getsize(path) / 1e6)
+    return paths, stats
+
+
+def onnx_conversion(tmp):
+    """M1: the v2/48k model and HuBERT-base (768 x 12, seed 0) exported to
+    ONNX on the card (T = 1024, 160000 samples); OnnxRVC on the card
+    converts the 10 s voice with pm (1 warm-up, 3 timed): wall ms, each
+    graph's CUDA-event ms, busy ms and operations (torch.profiler), peak
+    memory, 0 kernel launches; the graph's forward against
+    Synthesizer.infer on the card with the same rnd (kernels on); the
+    synthesizer at T = 200 and ContentVec traced on the card and on the
+    CPU; VC's 10 s conversion of the same model, voice and f0 method."""
+    from tpu_rvc_torch.audio.io import load_audio
+    from tpu_rvc_torch.ckpt.export import export_onnx
+    from tpu_rvc_torch.ckpt.torch2onnx import export_hubert_onnx
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.models.loader import load_synthesizer
+    from tpu_rvc_torch.models.onnx_exec import OnnxModule
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.onnx_infer import OnnxRVC
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t0 = time.perf_counter()
+    model = os.path.join(tmp, "v2_48k.pth")
+    wav_path = os.path.join(tmp, "voice_10s.wav")
+    hubert = hubert_for_version("v2", "cuda")
+    (synth_path, vec_path), exports = export_pair(
+        tmp, model, hubert, ONNX_T, VEC_SAMPLES, "cuda", "m1")
+    rvc = OnnxRVC(synth_path, hop_len=480, model_sr=48000, vec_path=vec_path,
+                  device="cuda")
+    wav = load_audio(wav_path, 48000)
+    run = lambda: rvc.infer(wav, 48000, f0_method="pm")  # noqa: E731
+    out = run()                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        out = run()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        onnx_counts = dict(launch_counts)
+        if any(onnx_counts.values()):
+            raise AssertionError(f"ONNX conversion launched kernels "
+                                 f"{onnx_counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_want = int(round(len(wav) / 48000 * 48000))
+    if out.dtype != np.int16 or not 0 < len(out) <= n_want or \
+            np.abs(out).max() == 0:
+        raise AssertionError(f"ONNX conversion gave {out.dtype} "
+                             f"{out.shape}")
+    wav16 = torch.from_numpy(load_audio(wav_path, 16000)[None]).cuda()
+    args = onnx_graph_args(ONNX_T, 13, "cuda")
+    vec_ms = median_ms(lambda: rvc.vec.model(wav16), iters=3)
+    synth_ms = median_ms(lambda: rvc.model(*args), iters=3)
+    busy, top = device_busy_ms(run)
+    # the graph against infer with the kernels, same rnd
+    synth, _ = load_synthesizer(model, "cuda")
+    reset_launch_counts()
+    want = synth.infer(*args[:2], args[4], *args[2:4], noise=args[5],
+                       noise_scale=1.0, deterministic=True)
+    infer_counts = dict(launch_counts)
+    got = rvc.model(*args)
+    rel = rel_l2(got.double().cpu().numpy().ravel(),
+                 want.double().cpu().numpy().ravel(),
+                 "ONNX graph against infer on the card", limit=EXPORT_REL)
+    # the synthesizer at T = 200 and ContentVec traced on the card and on
+    # the CPU, each run on the card (ContentVec's card export is the one
+    # above: an export costs the same at any length)
+    short = onnx_graph_args(200, 14, "cuda")
+    pair, pair_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"synth_t200_{dev}.onnx")
+        t1 = time.perf_counter()
+        export_onnx(model, path, T=200, device=dev)
+        pair_s[f"synth_{dev}"] = time.perf_counter() - t1
+        pair[dev] = OnnxModule.from_file(path, "cuda")(*short)
+    vec_cpu = os.path.join(tmp, "vec_cpu.onnx")
+    t1 = time.perf_counter()
+    export_hubert_onnx(hubert_for_version("v2", "cpu"), VEC_SAMPLES,
+                       path=vec_cpu)
+    pair_s["vec_cpu"] = time.perf_counter() - t1
+    vec_feats = (rvc.vec.model(wav16),
+                 OnnxModule.from_file(vec_cpu, "cuda")(wav16))
+    as_np = lambda x: x.double().cpu().numpy().ravel()  # noqa: E731
+    rel_pair = {
+        "synth_t200": rel_l2(as_np(pair["cuda"]), as_np(pair["cpu"]),
+                             "T=200 synth graph traced on card vs CPU",
+                             limit=EXPORT_REL),
+        "vec": rel_l2(as_np(vec_feats[0]), as_np(vec_feats[1]),
+                      "ContentVec graph traced on card vs CPU",
+                      limit=EXPORT_REL)}
+    # VC's own conversion of the same model, voice and f0 method
+    vc = VC(hubert_path="random")
+    vc.get_vc(model)
+    vc.vc_single(0, wav_path, f0_method="pm")
+    vc_walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        vc.vc_single(0, wav_path, f0_method="pm")
+        vc_walls.append((time.perf_counter() - t1) * 1e3)
+    say("onnx_conversion", model="v2/48k random weights",
+        hubert="HuBERT-base 768 x 12, seed 0", graph_T=ONNX_T,
+        vec_samples=VEC_SAMPLES, exports=exports, input_s=10.0,
+        f0_method="pm", wall_ms=walls, wall_ms_median=float(np.median(walls)),
+        vec_graph_ms=vec_ms, synth_graph_ms=synth_ms,
+        device_busy_ms=busy, device_ops=int(sum(c for _, _, c in top)),
+        top_kernels=[[nm[:50], ms, c] for nm, ms, c in top[:6]],
+        peak_mem_gb=peak_gb, output_samples=int(out.shape[0]),
+        launches=onnx_counts, graph_vs_infer_rel_l2=rel,
+        infer_launches=infer_counts,
+        traced_card_vs_cpu_rel_l2=rel_pair, traced_pair_export_s=pair_s,
+        vc_wall_ms=vc_walls, vc_wall_ms_median=float(np.median(vc_walls)))
+    phase_seconds("M1", t0)
+
+
+def pt2_on_card(tmp):
+    """M2: `.pt2` of infer at T = 1024 traced and saved on the CPU, loaded
+    onto the card and run against infer there (kernels on); its load
+    seconds beside load_synthesizer's; the noisy variant runs finite."""
+    from tpu_rvc_torch.ckpt.export import load_exported, save_exported
+    from tpu_rvc_torch.models.loader import load_synthesizer
+
+    t0 = time.perf_counter()
+    model = os.path.join(tmp, "v2_48k.pth")
+    cpu_synth, _ = load_synthesizer(model, "cpu")
+    paths, export_s = {}, {}
+    for det in (True, False):
+        paths[det] = os.path.join(tmp, f"v2_48k_{int(det)}.pt2")
+        t1 = time.perf_counter()
+        save_exported(cpu_synth, paths[det], T=ONNX_T, deterministic=det)
+        export_s[det] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fn = load_exported(paths[True], "cuda")
+    load_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    synth, _ = load_synthesizer(model, "cuda")
+    torch.cuda.synchronize()
+    synth_load_s = time.perf_counter() - t1
+    phone, lengths, pitch, pitchf, sid, rnd = onnx_graph_args(ONNX_T, 15,
+                                                              "cuda")
+    args = (phone, lengths, sid, pitch, pitchf, rnd)
+    got = fn(*args)
+    want = synth.infer(*args[:5], noise=rnd, deterministic=True)
+    rel = rel_l2(got.double().cpu().numpy().ravel(),
+                 want.double().cpu().numpy().ravel(),
+                 ".pt2 against infer on the card", limit=EXPORT_REL)
+    noisy = load_exported(paths[False], "cuda")(*args)
+    if noisy.shape != want.shape or not torch.isfinite(noisy).all():
+        raise AssertionError(".pt2 with noise: not finite audio")
+    ms = median_ms(lambda: fn(*args), iters=3)
+    infer_ms = median_ms(lambda: synth.infer(*args[:5], noise=rnd,
+                                             deterministic=True), iters=3)
+    say("pt2_on_card", graph_T=ONNX_T, traced_on="cpu",
+        export_s={"deterministic": export_s[True], "noisy": export_s[False]},
+        pt2_mb=os.path.getsize(paths[True]) / 1e6, load_exported_s=load_s,
+        load_synthesizer_s=synth_load_s, run_ms=ms, infer_ms=infer_ms,
+        rel_l2_vs_infer=rel, meta=fn.meta)
+    phase_seconds("M2", t0)
+
+
+def checkpoint_tools(tmp, g_path):
+    """M3: merge two random v2/48k models (alpha 0.3) and convert 10 s with
+    the merged one (6 K1, 72 K2); change_info on it; extract a small model
+    from the training run's G_*.pth and hash it on the card and on the CPU
+    (equal, or similarity >= SAME_MODEL), and another model on the card
+    (below it).  Returns the conversion's launches."""
+    from tpu_rvc_torch.ckpt.hash import hash_id, hash_similarity, model_hash
+    from tpu_rvc_torch.ckpt.small_model import (change_info,
+                                                extract_small_model, merge)
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.vc import VC
+    from tpu_rvc_torch.utils.base16384 import decode_from_string
+
+    t0 = time.perf_counter()
+    hp = hparams_for("v2", 48000)
+    wav = os.path.join(tmp, "voice_10s.wav")
+    other = os.path.join(tmp, "v2_48k_b.pth")
+    write_model(other, hp, seed=21)
+    merged = os.path.join(tmp, "merged.pth")
+    t1 = time.perf_counter()
+    merge(os.path.join(tmp, "v2_48k.pth"), other, 0.3, "48k", 1, "merged",
+          "merged", "v2", out_path=merged)
+    merge_s = time.perf_counter() - t1
+    vc = VC(hubert_path="random")
+    vc.get_vc(merged)
+    vc.vc_single(0, wav, f0_method="pm")                     # warm-up
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    _, (sr, audio) = vc.vc_single(0, wav, f0_method="pm")
+    wall = (time.perf_counter() - t1) * 1e3
+    counts = dict(launch_counts)
+    check_output(audio, expected_len(160000, vc.x_pad, 480, 48000),
+                 "merged model's conversion")
+    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    if counts != want:
+        raise AssertionError(f"merged model launches {counts}, want {want}")
+    renamed = change_info(merged, "changed info", "merged_info.pth", tmp)
+    if torch.load(renamed, weights_only=False)["info"] != "changed info":
+        raise AssertionError("change_info did not write the info")
+    extracted = extract_small_model(g_path, "extracted", "48k", 1, "", "v2",
+                                    hp, out_path=os.path.join(
+                                        tmp, "extracted.pth"))
+    hashes = {}
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        hvc = VC(x_pad=1.0, device=dev)
+        meta = hvc.get_vc(extracted, hubert=hubert_for_version("v2", dev))
+        h = model_hash(hvc.pipeline, int(meta.get("f0", 1)))
+        hashes[dev] = (h, hash_id(h), time.perf_counter() - t1)
+    sim = hash_similarity(hashes["cuda"][0], hashes["cpu"][0])
+    if hashes["cuda"][0] != hashes["cpu"][0] and sim < SAME_MODEL:
+        raise AssertionError(f"model hash card vs CPU: similarity {sim}")
+    # another model must not pass for the extracted one
+    hvc = VC(x_pad=1.0)
+    hvc.get_vc(other, hubert=hubert_for_version("v2", "cuda"))
+    sim_other = hash_similarity(hashes["cuda"][0],
+                                model_hash(hvc.pipeline, 1))
+    if sim_other >= SAME_MODEL:
+        raise AssertionError(f"another model's hash reads {sim_other}")
+    a, b = (np.frombuffer(decode_from_string(hashes[d][0]), ">i2")
+            for d in ("cuda", "cpu"))
+    say("checkpoint_tools", merge_alpha=0.3, merge_s=merge_s,
+        merged_wall_ms=wall, merged_launches=counts, sr=sr,
+        extracted_from=os.path.basename(g_path),
+        hash_card_id=hashes["cuda"][1], hash_cpu_id=hashes["cpu"][1],
+        hash_equal=hashes["cuda"][0] == hashes["cpu"][0],
+        hash_similarity=sim, hash_words_differing=int((a != b).sum()),
+        hash_similarity_other_model=sim_other, hash_gate=SAME_MODEL,
+        hash_card_s=hashes["cuda"][2], hash_cpu_s=hashes["cpu"][2])
+    phase_seconds("M3", t0)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1807,6 +2161,12 @@ def main():
         with contextlib.chdir(tmp):   # FCPE finds assets/fcpe/fcpe.pt here
             fcpe_counts = fcpe_phases(tmp, main_counts)
         host_f0_counts = host_f0_conversions(tmp)
+        onnx_conversion(tmp)
+        pt2_on_card(tmp)
+        g_path = max((os.path.join(exp, f) for f in os.listdir(exp)
+                      if f.startswith("G_") and f.endswith(".pth")),
+                     key=os.path.getmtime)
+        tools_counts = checkpoint_tools(tmp, g_path)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -1819,6 +2179,7 @@ def main():
         (e["fcpe_launches"], e["fcpe_stream_launches"],
          e["fcpe_batch_launches"]) = (c[e["name"]] for c in fcpe_counts)
         e["host_f0_launches"] = host_f0_counts[e["name"]]
+        e["merged_model_launches"] = tools_counts[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -50,3 +50,23 @@ def device_constant(key, make, device) -> torch.Tensor:
     if full_key not in _constants:
         _constants[full_key] = torch.as_tensor(make()).to(dev)
     return _constants[full_key]
+
+
+def _draw(fn, shape, generator, like):
+    dev = like.device if generator is None else generator.device
+    out = fn(tuple(shape), generator=generator, device=dev, dtype=like.dtype)
+    return out.to(like.device)
+
+
+def draw_normal(shape, generator: Optional[torch.Generator],
+                like: torch.Tensor) -> torch.Tensor:
+    """Standard normal noise of `like`'s dtype on `like`'s device, drawn
+    where `generator` lives: a CPU generator gives the same numbers for a
+    tensor on any device (the model hash relies on it)."""
+    return _draw(torch.randn, shape, generator, like)
+
+
+def draw_uniform(shape, generator: Optional[torch.Generator],
+                 like: torch.Tensor) -> torch.Tensor:
+    """As `draw_normal`, uniform on [0, 1)."""
+    return _draw(torch.rand, shape, generator, like)

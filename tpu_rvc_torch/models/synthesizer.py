@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from tpu_rvc_torch.core.config import HParams
-from tpu_rvc_torch.core.device import fp32_math, resolve_device
+from tpu_rvc_torch.core.device import draw_normal, fp32_math, resolve_device
 from tpu_rvc_torch.nn.encoders import PosteriorEncoder, TextEncoder
 from tpu_rvc_torch.nn.flows import ResidualCouplingBlock
 from tpu_rvc_torch.nn.generators import Generator, NSFGenerator
@@ -134,8 +134,7 @@ class Synthesizer(nn.Module):
             elif deterministic:
                 eps = torch.zeros_like(m_p)
             else:
-                eps = torch.randn(m_p.shape, generator=generator,
-                                  device=m_p.device, dtype=m_p.dtype)
+                eps = draw_normal(m_p.shape, generator, m_p)
             z_p = (m_p + torch.exp(logs_p) * eps * noise_scale) * x_mask
         with span("flow", phone.device):
             mask_cf = x_mask.transpose(1, 2)                 # (B, 1, T)
@@ -153,6 +152,29 @@ class Synthesizer(nn.Module):
                              deterministic=deterministic)
             else:
                 o = self.dec(z * mask_cf, g=g, n_res=return_length2)
+        return o.transpose(1, 2)                             # (B, T*hop, 1)
+
+    @torch.no_grad()
+    @fp32_math()
+    def infer_mix(self, phone, phone_lengths, g_mix, pitch=None, pitchf=None,
+                  noise: Optional[torch.Tensor] = None):
+        """Speaker-mix inference (tpu_rvc/models/synthesizer.py:172;
+        reference rvc/onnx/synthesizer.py:60-81): `g_mix` (B, T, n_speakers)
+        weighs the speaker table per frame, so the conditioning is
+        (B, gin, T) and every 1x1 cond conv carries it through the flow and
+        the decoder.  The prior noise is `noise` (B, T, C), zero if None,
+        at scale 1; the decoder is deterministic, as the export forward."""
+        g = torch.einsum("bts,sh->bht", g_mix.to(self.emb_g.weight.dtype),
+                         self.emb_g.weight)
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
+        eps = torch.zeros_like(m_p) if noise is None else noise
+        z_p = (m_p + torch.exp(logs_p) * eps) * x_mask
+        mask_cf = x_mask.transpose(1, 2)
+        z = self.flow(z_p.transpose(1, 2), mask_cf, g=g)
+        if self.use_f0 and pitchf is not None:
+            o = self.dec(z * mask_cf, pitchf, g=g, deterministic=True)
+        else:
+            o = self.dec(z * mask_cf, g=g)
         return o.transpose(1, 2)                             # (B, T*hop, 1)
 
 

@@ -7,7 +7,9 @@ banded twin on the CPU.  The training forward (`train=True`, which
 `Synthesizer.forward` passes down) takes the JAX module's XLA branch
 instead (`:178-233`): dense scores with the band added by scatter, whole
 padded rows and columns masked, differentiable; the kernel has no
-backward, in the JAX package as here.  Short sequences (T <= W + 1) take
+backward, in the JAX package as here.  A graph that `torch.export`
+traces holds the kernel's plain twin, on any device: the ctypes launch is
+opaque to it.  Short sequences (T <= W + 1) take
 the Shaw index-shuffle branch in both modes (`:212-216`).  Parameter
 names follow the reference torch modules (`attn_layers.0.conv_q.weight`,
 `emb_rel_k`, ...).
@@ -22,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_rvc_torch.ops.kernels.rel_attention import banded_rel_attention
+from tpu_rvc_torch.ops.kernels.rel_attention import (
+    banded_rel_attention, banded_rel_attention_plain)
 from .modules import Conv1d, LayerNorm1d
 
 
@@ -96,8 +99,13 @@ class MultiHeadRelAttention(nn.Module):
         elif train:
             out = self._banded(qh, kh, vh, lengths)
         else:
+            # a traced graph holds the kernel's plain twin on any device:
+            # the ctypes launch is opaque to torch.export
+            attend = (banded_rel_attention_plain
+                      if torch.compiler.is_exporting()
+                      else banded_rel_attention)
             bh_len = lengths.to(torch.int32).repeat_interleave(h).contiguous()
-            out = banded_rel_attention(
+            out = attend(
                 qh.reshape(B * h, T, dk).contiguous(),
                 kh.reshape(B * h, T, dk).contiguous(),
                 vh.reshape(B * h, T, dk).contiguous(),

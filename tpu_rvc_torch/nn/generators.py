@@ -10,7 +10,9 @@ cache is keyed on each parameter's storage and version counter, which
 every in-place write (an optimizer step, `load_state_dict`) moves on.  The
 training forward (`train=True`) runs `mean_j ResBlock1_j.forward(x)`, as
 the JAX decoder does outside its kernel context
-(tpu_rvc/nn/generators.py:78-83): the kernel has no backward.
+(tpu_rvc/nn/generators.py:78-83): the kernel has no backward.  So does a
+graph that `torch.export` traces (`ckpt/export.py`, `ckpt/torch2onnx.py`),
+as the JAX exporters trace the XLA path, never the Pallas kernel.
 
 Two leaky-ReLU slopes: 0.1 between layers, the default 0.01 before
 conv_post (reference generators.py / nsf.py).
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_rvc_torch.core.device import draw_normal, draw_uniform
 from tpu_rvc_torch.ops.kernels.resblock import (fused_resblock, fused_stage,
                                                  stage_weights)
 from tpu_rvc_torch.ops.resample import linear_interp_1d, nearest_upsample
@@ -77,7 +80,10 @@ class _Decoder(nn.Module):
         """mean_j ResBlock_j(x) of upsample level i."""
         blocks = self.resblocks[i * self.num_kernels:
                                 (i + 1) * self.num_kernels]
-        if train or not isinstance(blocks[0], ResBlock1):
+        if train or torch.compiler.is_exporting() or \
+                not isinstance(blocks[0], ResBlock1):
+            # a traced graph (torch.export) takes the modules: the kernel
+            # launch is opaque to it and the cache keys need real storage
             return sum(rb(x) for rb in blocks) / self.num_kernels
         version = stage_key(blocks)
         cached = self._stage_cache.get((i, x.device))
@@ -149,8 +155,7 @@ class SineGenerator(nn.Module):
                 deterministic: bool = False):
         rand_ini = None
         if not deterministic and self.dim > 1:
-            rand_ini = torch.rand((1, 1, self.dim), generator=generator,
-                                  device=f0.device, dtype=f0.dtype)
+            rand_ini = draw_uniform((1, 1, self.dim), generator, f0)
         phases = f0_to_sine_phases(f0, upp, self.sampling_rate, self.dim,
                                    rand_ini)
         sines = torch.sin(2 * math.pi * phases) * self.sine_amp
@@ -160,8 +165,7 @@ class SineGenerator(nn.Module):
         if deterministic:
             noise = torch.zeros_like(sines)
         else:
-            noise = noise_amp * torch.randn(sines.shape, generator=generator,
-                                            device=f0.device, dtype=f0.dtype)
+            noise = noise_amp * draw_normal(sines.shape, generator, f0)
         return sines * uv + noise, uv, noise
 
 

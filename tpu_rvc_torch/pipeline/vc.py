@@ -165,13 +165,16 @@ class Pipeline:
             generator=generator)
         return out[0, :, 0]
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _generator(self, seed: int, device=None) -> torch.Generator:
+        return torch.Generator(
+            device=self.device if device is None else device).manual_seed(
+                int(seed))
 
     @torch.no_grad()
     def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
               index_arrays, index_rate: float, protect: float,
-              rms_mix_rate: float, noise_seed: int, f0_method: str):
+              rms_mix_rate: float, generator: torch.Generator,
+              f0_method: str):
         """Single-chunk conversion of the bucketed, padded utterance
         (the JAX `_full_graph`): f0 + conversion + pad trim + RMS mix +
         int16, all on the device.  audio: (L,) with L a whole bucket."""
@@ -188,7 +191,7 @@ class Pipeline:
                                           model)
             pit, pitf = pitch[:p_len_static], pitchf[:p_len_static]
         out = self._convert(audio, L, sid, pit, pitf, index_arrays,
-                            index_rate, protect, self._generator(noise_seed))
+                            index_rate, protect, generator)
         out = out[: true_frames * self.synth.hop]
         out = out[self.t_pad_tgt: out.shape[0] - self.t_pad_tgt]
         src16 = audio[self.t_pad: L - self.t_pad]
@@ -200,7 +203,8 @@ class Pipeline:
     @fp32_math()
     def vc_chunk(self, audio_chunk, sid: int, pitch, pitchf,
                  index: Optional[FeatureIndex], index_rate: float,
-                 protect: float, times: List[float], noise_seed: int = 0):
+                 protect: float, times: List[float], noise_seed: int = 0,
+                 noise_device=None):
         """Convert one 16 kHz chunk (tensor on the device) -> target-sr
         float audio on the device, trimmed to its true frame count."""
         L = int(audio_chunk.shape[0])
@@ -218,7 +222,8 @@ class Pipeline:
         t0 = time.time()
         out = self._convert(audio_b, L, sid, pit, pitf,
                             self._index_arrays(index, index_rate),
-                            index_rate, protect, self._generator(noise_seed))
+                            index_rate, protect,
+                            self._generator(noise_seed, noise_device))
         times[2] += time.time() - t0
         true_frames = min(L // WINDOW, p_len_static)
         return out[: true_frames * self.synth.hop]
@@ -231,11 +236,14 @@ class Pipeline:
                  index: Optional[FeatureIndex], index_rate: float,
                  if_f0: int, filter_radius, resample_sr: int,
                  rms_mix_rate: float, protect: float, f0_file=None,
-                 noise_seed: int = 0) -> np.ndarray:
+                 noise_seed: int = 0, noise_device=None) -> np.ndarray:
         """Full conversion (reference pipeline, pipeline.py:186) -> int16.
         if_f0 == 2 takes a precomputed track: `f0_method` is then the
         (coarse pitch, f0) pair, trimmed to the padded input's frames.
-        f0_file: a manual curve, (n, 2) rows of (seconds, Hz)."""
+        f0_file: a manual curve, (n, 2) rows of (seconds, Hz).
+        noise_device: where the seeded noise is drawn (default the
+        pipeline's device); the draws move to the device, so a CPU
+        generator gives one conversion on any card (ckpt/hash.py)."""
         use_f0 = bool(if_f0)
         audio = highpass_filter(np.asarray(audio, np.float32))
         opt_ts = silence_chunk_bounds(audio, self.t_center, self.t_query,
@@ -257,7 +265,8 @@ class Pipeline:
             t0 = time.time()
             out = self._full(torch.as_tensor(audio_pad, device=self.device),
                              float(f0_up_key), sid, use_f0, index_arrays,
-                             index_rate, protect, rms_mix_rate, noise_seed,
+                             index_rate, protect, rms_mix_rate,
+                             self._generator(noise_seed, noise_device),
                              f0_method)
             if L != L_true:
                 p_len_static = min(L // WINDOW, _feat_frames(L))
@@ -305,14 +314,16 @@ class Pipeline:
             sl = slice(s // WINDOW, (t + self.t_pad2) // WINDOW)
             out = self.vc_chunk(chunk, sid, pitch[sl] if use_f0 else None,
                                 pitchf[sl] if use_f0 else None, index,
-                                index_rate, protect, times, noise_seed)
+                                index_rate, protect, times, noise_seed,
+                                noise_device)
             audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
             s = t
         chunk = audio_pad_dev[t:] if t is not None else audio_pad_dev
         tail = slice(t // WINDOW if t is not None else 0, None)
         out = self.vc_chunk(chunk, sid, pitch[tail] if use_f0 else None,
                             pitchf[tail] if use_f0 else None, index,
-                            index_rate, protect, times, noise_seed)
+                            index_rate, protect, times, noise_seed,
+                            noise_device)
         audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
 
         result = torch.cat(audio_opt).cpu().numpy()
