@@ -126,6 +126,30 @@ Phases, one line of output each (any failure exits non-zero):
      and its model hash on the card and on the CPU (equal, or similarity
      >= 0.998), another model's hash below that, ids and seconds; each M
      phase prints its seconds;
+ U1. UVR5 at full width: an HP5-style CascadedASPPNet (n_fft 1344,
+     4band_v2, window 512, offset 128, agg 10) from a random-weight `.pth`
+     in the reference layout, load_separator -> DeviceSeparator on a 30 s
+     44.1 kHz mix (the voice, two tones, noise), TTA off and on, 1 warm-up
+     + 3 timed: wall ms, CUDA-event spans (resample, stft, net, istft),
+     the profiler's busy ms and share, windows and the window group,
+     FlopCounterMode's operations and TFLOP/s beside the fp32 peak, peak
+     memory, no K1/K2/K3 launch; the host path (UVR5Separator) and device
+     against host (relative L2 < 0.05); a 3-minute mix's peak memory; 3 s
+     on the card against the CPU (int16 within 2 LSB); the HP3 name swaps
+     the stems;
+ U2. the same for CascadedNetDeEcho (nout 32, nout_lstm 128, 4band_v3,
+     offset 64) from `VR-DeEchoNormal_random.pth`, TTA off, its stems
+     swapped;
+ U3. MDX-Net: a Conv-TDF graph at the published dims (dim_f 3072, 512
+     frames, n_fft 6144) written as `vocals.onnx` by the port's encoder;
+     load_separator -> MDXNetDereverb on the port's ONNX executor;
+     `_path_audio_` on 10 s writes both stems; demix wall ms, the graph's
+     CUDA-event ms, busy ms, operations; 3 s card against CPU (relative
+     L2 < 1e-4);
+ U4. `python -m tpu_rvc_torch.apps.separate` in its own process on U1's
+     model and a 5 s mix: both WAVs hold DeviceSeparator's output within
+     2 LSB (the app reports a failure and goes on, so this check is what
+     catches one); each U phase prints its seconds;
 then one JSON line of kernels, the card line again, and the result line.
 """
 
@@ -2116,6 +2140,405 @@ def checkpoint_tools(tmp, g_path):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases U1-U4: UVR5 separation at full width
+# ---------------------------------------------------------------------------
+
+SEP_SR = 44100
+SONG_S, LONG_S, SHORT_S = 30.0, 180.0, 3.0
+SEP_GROUP = 8          # windows a call of the net
+# the device path resamples the band pyramid with the windowed sinc, the
+# host path with scipy: the JAX package's own bound between the two
+DEVICE_VS_HOST = 0.05
+# the separators' output is int16: card against CPU, and the port against
+# the JAX package on the CPU (tests/test_torch_uvr5.py), within 2 LSB
+CARD_VS_CPU_LSB = 2
+MDX_C = 32             # the Conv-TDF clone's channels at its first level
+MDX_CARD_VS_CPU = 1e-4
+
+
+def song(seconds, seed):
+    """A 44.1 kHz mix: `voice` with two tones and noise under it."""
+    t = np.arange(int(SEP_SR * seconds)) / SEP_SR
+    rng = np.random.default_rng(seed)
+    x = (voice(seconds, seed, SEP_SR) + 0.15 * np.sin(2 * np.pi * 220 * t)
+         + 0.1 * np.sin(2 * np.pi * 2637 * t)
+         + 0.02 * rng.standard_normal(t.size))
+    return (0.7 * x / np.abs(x).max()).astype(np.float32)
+
+
+def write_song(tmp, seconds, seed=31):
+    from tpu_rvc_torch.audio.io import save_wav
+
+    path = os.path.join(tmp, f"song_{seconds:g}s.wav")
+    if not os.path.exists(path):
+        save_wav(path, song(seconds, seed), SEP_SR)
+    return path
+
+
+def check_stems(ins, voc, seconds, what):
+    n = int(seconds * SEP_SR)
+    for x in (ins, voc):
+        x = np.asarray(x)
+        if x.ndim != 2 or x.shape[1] != 2 or not n - 2048 <= x.shape[0] <= n:
+            raise AssertionError(f"{what}: stems of shape {x.shape} for "
+                                 f"{n} samples")
+        if not np.isfinite(x.astype(np.float32)).all() or \
+                np.abs(x).max() == 0:
+            raise AssertionError(f"{what}: stems are not finite audio")
+
+
+def read_stereo_wav(path):
+    """A 16-bit WAV's samples as they are, (T, channels) int16, and its
+    rate (`load_wav` averages the channels)."""
+    import wave
+
+    with wave.open(path, "rb") as w:
+        data = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        return data.reshape(-1, w.getnchannels()), w.getframerate()
+
+
+def int16_lsb(a, b, what, limit=CARD_VS_CPU_LSB):
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: {a.shape} vs {b.shape}")
+    lsb = int(np.abs(a.astype(np.int32) - b).max())
+    if lsb > limit:
+        raise AssertionError(f"{what}: {lsb} LSB apart, limit {limit}")
+    return lsb
+
+
+def no_kernel_launches(what):
+    from tpu_rvc_torch.ops.kernels import launch_counts
+
+    if any(launch_counts.values()):
+        raise AssertionError(f"{what} launched kernels "
+                             f"{dict(launch_counts)}; separation has none")
+    return dict(launch_counts)
+
+
+def separation_figures(dev_sep, path, seconds, n_timed=3):
+    """`DeviceSeparator.separate(path)`: 1 warm-up and n_timed runs on the
+    host clock to the int16 fetch, with CUDA-event spans, launches, peak
+    memory, windows and calls of the net; then the profiler's busy ms and
+    FlopCounterMode's operations over one more run each."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_rvc_torch.ops.kernels import reset_launch_counts
+    from tpu_rvc_torch.utils import timing
+
+    calls = []
+    hook = dev_sep.sep.model.register_forward_pre_hook(
+        lambda m, args: calls.append(int(args[0].shape[0])))
+    out = dev_sep.separate(path)                          # warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, spans = [], []
+    for _ in range(n_timed):
+        calls.clear()
+        reset_launch_counts()
+        timing.enable()
+        t0 = time.perf_counter()
+        out = dev_sep.separate(path)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(timing.read())
+        timing.disable()
+        counts = no_kernel_launches("a separation")
+        check_stems(out[0], out[1], seconds, "device separation")
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy, top = device_busy_ms(lambda: dev_sep.separate(path))
+    with FlopCounterMode(display=False) as fc:
+        dev_sep.separate(path)
+    flops = fc.get_total_flops()
+    span_ms = {k: float(np.median([s.get(k, 0.0) for s in spans]))
+               for k in spans[-1]}
+    wall = float(np.median(walls))
+    return out, counts, dict(
+        input_s=seconds, tta=dev_sep.sep.tta, wall_ms=walls,
+        wall_ms_median=wall, span_ms=span_ms, device_busy_ms=busy,
+        busy_share=None if busy is None else busy / wall,
+        device_ops=int(sum(c for _, _, c in top)),
+        top_kernels=[[nm[:50], ms, c] for nm, ms, c in top[:5]],
+        windows=sum(calls), net_calls=len(calls), window_group=dev_sep.group,
+        flops=flops, tflops_per_s_net=flops / span_ms["net"] / 1e9,
+        tflops_per_s_wall=flops / wall / 1e9,
+        peak_fp32_tflops=PEAK_FP32 / 1e12, peak_mem_gb=peak,
+        launches=counts)
+
+
+def host_figures(sep, path, seconds, n_timed=3):
+    """`UVR5Separator.separate(path)`, the host path: 1 warm-up and
+    n_timed runs -> (ins, voc, wall ms)."""
+    from tpu_rvc_torch.ops.kernels import reset_launch_counts
+
+    sep.separate(path)
+    walls = []
+    for _ in range(n_timed):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ins, voc, _ = sep.separate(path)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        no_kernel_launches("a host-path separation")
+    check_stems(ins, voc, seconds, "host separation")
+    return ins, voc, walls
+
+
+def device_vs_host(dev_out, host_out, what):
+    rels = {}
+    for i, stem in enumerate(("instrument", "vocal")):
+        d, h = dev_out[i], host_out[i]
+        n = min(len(d), len(h))
+        rels[stem] = rel_l2(d[:n].astype(np.float64) / 32768.0,
+                            h[:n].astype(np.float64),
+                            f"{what} {stem}: device against host path",
+                            limit=DEVICE_VS_HOST)
+    return rels
+
+
+def card_vs_cpu(path_model, path, make_dev, what):
+    """The device path on the card and on the CPU for the SHORT_S input:
+    int16 within CARD_VS_CPU_LSB, and the relative L2 beside it."""
+    from tpu_rvc_torch.pipeline.uvr5 import load_separator
+
+    outs = {d: make_dev(load_separator(path_model, device=d)).separate(path)
+            for d in ("cuda", "cpu")}
+    figures = {}
+    for i, stem in enumerate(("instrument", "vocal")):
+        a, b = (outs[d][i].astype(np.float64) for d in ("cuda", "cpu"))
+        figures[stem] = dict(
+            lsb=int16_lsb(outs["cuda"][i], outs["cpu"][i],
+                          f"{what} {stem} card vs CPU"),
+            rel_l2=float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    return figures
+
+
+def hp_separation(tmp):
+    """U1: an HP5-style CascadedASPPNet at full width from a random-weight
+    `.pth` in the reference layout (n_fft 1344, 4band_v2, window 512,
+    offset 128, agg 10): load_separator -> DeviceSeparator on the 30 s
+    song, TTA off and on; the host path and device against host; a
+    3-minute song's peak memory; 3 s card against CPU; the HP3 name swaps
+    the stems.  Returns the launches."""
+    from tpu_rvc_torch.ckpt.uvr5_loader import (
+        random_cascaded_aspp_reference_state)
+    from tpu_rvc_torch.pipeline.uvr5 import DeviceSeparator, load_separator
+
+    t0 = time.perf_counter()
+    sd = random_cascaded_aspp_reference_state(41, 1344)
+    paths = {n: os.path.join(tmp, f"{n}_random.pth") for n in ("HP5", "HP3")}
+    for p in paths.values():
+        torch.save(sd, p)
+    song30, song180, song3 = (write_song(tmp, s)
+                              for s in (SONG_S, LONG_S, SHORT_S))
+    sep = load_separator(paths["HP5"])
+    if sep.is_reverse or sep.model.max_bin != 672:
+        raise AssertionError("HP5 name: not the 4band_v2 HP net")
+    dev = DeviceSeparator(sep, group=SEP_GROUP)
+    figures = {}
+    for tta in (False, True):
+        sep.tta = tta
+        out, counts, figures[f"tta_{int(tta)}"] = separation_figures(
+            dev, song30, SONG_S)
+        if not tta:
+            dev_out = out
+    sep.tta = False
+    ins, voc, host_walls = host_figures(sep, song30, SONG_S)
+    rels = device_vs_host(dev_out, (ins, voc), "HP5")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    long_out = dev.separate(song180)
+    long_s = time.perf_counter() - t1
+    check_stems(*long_out[:2], LONG_S, "3-minute separation")
+    long_peak = torch.cuda.max_memory_allocated() / 1e9
+    cpu = card_vs_cpu(paths["HP5"], song3,
+                      lambda s: DeviceSeparator(s, group=SEP_GROUP), "HP5")
+    hp3 = DeviceSeparator(load_separator(paths["HP3"]), group=SEP_GROUP)
+    short = dev.separate(song3)
+    swapped = hp3.separate(song3)
+    if not hp3.sep.is_reverse:
+        raise AssertionError("HP3 name: outputs not swapped")
+    swap_lsb = max(int16_lsb(swapped[0], short[1], "HP3 instrument", 0),
+                   int16_lsb(swapped[1], short[0], "HP3 vocal", 0))
+    say("uvr5_hp", model="CascadedASPPNet random weights (HP5 layout)",
+        params="4band_v2", n_fft=1344, window=512, offset=128, agg=10,
+        **figures, host_wall_ms=host_walls,
+        host_wall_ms_median=float(np.median(host_walls)),
+        device_vs_host_rel_l2=rels, long_input_s=LONG_S, long_wall_s=long_s,
+        long_peak_mem_gb=long_peak, card_vs_cpu_3s=cpu,
+        card_vs_cpu_gate=f"int16 within {CARD_VS_CPU_LSB} LSB",
+        hp3_swap_lsb=swap_lsb)
+    phase_seconds("U1", t0)
+    return counts
+
+
+def deecho_separation(tmp):
+    """U2: CascadedNetDeEcho at full width (nout 32, nout_lstm 128,
+    4band_v3, window 512, offset 64) from a random-weight
+    `VR-DeEchoNormal_random.pth`: the figures of U1 with TTA off, the
+    stems swapped, 3 s card against CPU.  Returns the launches."""
+    from tpu_rvc_torch.ckpt.uvr5_loader import random_deecho_reference_state
+    from tpu_rvc_torch.models.uvr5 import CascadedNetDeEcho
+    from tpu_rvc_torch.pipeline.uvr5 import (DeviceSeparator, UVR5Separator,
+                                             load_separator)
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "VR-DeEchoNormal_random.pth")
+    torch.save(random_deecho_reference_state(42, 1344, 32, 128), path)
+    song30, song3 = write_song(tmp, SONG_S), write_song(tmp, SHORT_S)
+    sep = load_separator(path)
+    if not (isinstance(sep.model, CascadedNetDeEcho) and sep.is_reverse
+            and sep.model.out.in_channels == 32):
+        raise AssertionError("DeEcho name: not the reversed DeEcho net")
+    dev = DeviceSeparator(sep, group=SEP_GROUP)
+    dev_out, counts, figures = separation_figures(dev, song30, SONG_S)
+    ins, voc, host_walls = host_figures(sep, song30, SONG_S)
+    rels = device_vs_host(dev_out, (ins, voc), "DeEcho")
+    cpu = card_vs_cpu(path, song3,
+                      lambda s: DeviceSeparator(s, group=SEP_GROUP), "DeEcho")
+    plain = DeviceSeparator(UVR5Separator(sep.model, sep.mp,
+                                          window_size=sep.window_size),
+                            group=SEP_GROUP).separate(song3)
+    short = dev.separate(song3)
+    swap_lsb = max(int16_lsb(short[0], plain[1], "DeEcho instrument", 0),
+                   int16_lsb(short[1], plain[0], "DeEcho vocal", 0))
+    say("uvr5_deecho", model="CascadedNetDeEcho random weights",
+        params="4band_v3", n_fft=1344, nout=32, nout_lstm=128, window=512,
+        offset=64, agg=10, **figures, host_wall_ms=host_walls,
+        host_wall_ms_median=float(np.median(host_walls)),
+        device_vs_host_rel_l2=rels, card_vs_cpu_3s=cpu,
+        card_vs_cpu_gate=f"int16 within {CARD_VS_CPU_LSB} LSB",
+        swap_lsb=swap_lsb,
+        flops_note="FlopCounterMode counts the convolutions and the dense "
+                   "layers, not the cuDNN LSTM")
+    phase_seconds("U2", t0)
+    return counts
+
+
+def mdx_separation(tmp):
+    """U3: MDX-Net on the port's ONNX executor: the Conv-TDF clone at the
+    published dims (dim_f 3072, 512 frames, n_fft 6144; MDX_C channels)
+    written as `vocals.onnx`; load_separator -> MDXNetDereverb;
+    `_path_audio_` on 10 s writes both stems; the demix's wall ms, the
+    graph's CUDA-event ms, busy ms and operations; 3 s card against CPU.
+    Returns the launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpu_rvc_torch.audio.io import load_wav
+    from tpu_rvc_torch.ops.kernels import reset_launch_counts
+    from tpu_rvc_torch.pipeline.mdxnet import MDXNetDereverb, conv_tdf_onnx
+    from tpu_rvc_torch.pipeline.uvr5 import load_separator
+    from tpu_rvc_torch.utils import timing
+
+    t0 = time.perf_counter()
+    onnx_dir = os.path.join(tmp, "onnx_dereverb_By_FoxJoy")
+    os.makedirs(onnx_dir, exist_ok=True)
+    with open(os.path.join(onnx_dir, "vocals.onnx"), "wb") as f:
+        f.write(conv_tdf_onnx(c=MDX_C, seed=43))
+    mdx = load_separator(onnx_dir)
+    if not isinstance(mdx, MDXNetDereverb):
+        raise AssertionError("onnx_dereverb name: not MDX-Net")
+    song10, song3 = write_song(tmp, 10.0), write_song(tmp, SHORT_S)
+    out_dir = os.path.join(tmp, "mdx_out")
+    reset_launch_counts()
+    mdx._path_audio_(song10, os.path.join(out_dir, "voc"),
+                     os.path.join(out_dir, "ins"))
+    counts = no_kernel_launches("MDX-Net")
+    for sub, stem in (("voc", "vocal"), ("ins", "instrument")):
+        x, sr = load_wav(os.path.join(out_dir, sub,
+                                      f"{stem}_song_10s.wav.wav"))
+        if sr != SEP_SR or len(x) != int(10.0 * SEP_SR) or \
+                not np.isfinite(x).all() or np.abs(x).max() == 0:
+            raise AssertionError(f"MDX-Net {stem}: {sr} Hz, {x.shape}")
+    mix = np.stack([song(10.0, 31)] * 2)
+    mdx.pred.demix(mix)                                  # warm-up
+    walls, graph = [], []
+    for _ in range(3):
+        reset_launch_counts()
+        timing.enable()
+        t1 = time.perf_counter()
+        opt = mdx.pred.demix(mix)
+        walls.append((time.perf_counter() - t1) * 1e3)
+        graph.append(timing.read()["net"])
+        timing.disable()
+        no_kernel_launches("MDX-Net")
+    busy, top = device_busy_ms(lambda: mdx.pred.demix(mix))
+    with FlopCounterMode(display=False) as fc:
+        mdx.pred.demix(mix)
+    mix3 = np.stack([song(SHORT_S, 31)] * 2)
+    got = mdx.pred.demix(mix3)
+    want = MDXNetDereverb(onnx_dir, device="cpu").pred.demix(mix3)
+    rel = rel_l2(got.astype(np.float64), want.astype(np.float64),
+                 "MDX-Net demix card vs CPU", limit=MDX_CARD_VS_CPU)
+    say("uvr5_mdx", model=f"Conv-TDF clone, random weights, c={MDX_C}",
+        dim_f=3072, dim_t=512, n_fft=6144, input_s=10.0,
+        output_peak=float(np.abs(opt).max()), demix_wall_ms=walls,
+        demix_wall_ms_median=float(np.median(walls)), graph_ms=graph,
+        graph_ms_median=float(np.median(graph)), device_busy_ms=busy,
+        device_ops=int(sum(c for _, _, c in top)),
+        top_kernels=[[nm[:50], ms, c] for nm, ms, c in top[:5]],
+        flops=fc.get_total_flops(), card_vs_cpu_3s_rel_l2=rel,
+        launches=counts)
+    phase_seconds("U3", t0)
+    return counts
+
+
+def separate_app(tmp):
+    """U4: `python -m tpu_rvc_torch.apps.separate` in a process of its own
+    on U1's model and a 5 s song: both files exist and hold
+    DeviceSeparator.separate's output within CARD_VS_CPU_LSB.  The app
+    prints a failure and goes on, so only these checks catch one.  Returns
+    the launches of the in-process separation."""
+    from tpu_rvc_torch.ops.kernels import reset_launch_counts
+    from tpu_rvc_torch.pipeline.uvr5 import DeviceSeparator, load_separator
+
+    t0 = time.perf_counter()
+    model = os.path.join(tmp, "HP5_random.pth")
+    song5 = write_song(tmp, 5.0)
+    out_dir = os.path.join(tmp, "app_out")
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_rvc_torch.apps.separate", "--model",
+         model, "--input", song5, "--vocal-dir",
+         os.path.join(out_dir, "voc"), "--ins-dir",
+         os.path.join(out_dir, "ins")], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    app_s = time.perf_counter() - t1
+    reset_launch_counts()
+    ins, voc, sr = DeviceSeparator(load_separator(model),
+                                   group=SEP_GROUP).separate(song5)
+    counts = no_kernel_launches("the app's separation")
+    name = os.path.basename(song5)
+    diffs = {}
+    for sub, stem, want in (("ins", "instrument", ins),
+                            ("voc", "vocal", voc)):
+        path = os.path.join(out_dir, sub, f"{stem}_{name}.wav")
+        if not os.path.exists(path):
+            raise AssertionError(f"separate app wrote no {path}: "
+                                 f"{proc.stdout[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        got, got_sr = read_stereo_wav(path)
+        if got_sr != sr:
+            raise AssertionError(f"separate app wrote {got_sr} Hz")
+        # cuDNN times its algorithms in each process (cudnn_autotune), so
+        # the app's process may take others: the last bits may differ
+        diffs[stem] = int16_lsb(got, want, f"separate app {stem}")
+    say("uvr5_app", command="python -m tpu_rvc_torch.apps.separate",
+        input_s=5.0, app_s=app_s, returncode=proc.returncode,
+        stdout=proc.stdout.strip()[-200:], lsb_vs_library=diffs)
+    phase_seconds("U4", t0)
+    return counts
+
+
+def separation_phases(tmp):
+    """U1-U4 -> the launches of each (all 0)."""
+    return [hp_separation(tmp), deecho_separation(tmp), mdx_separation(tmp),
+            separate_app(tmp)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2167,6 +2590,7 @@ def main():
                       if f.startswith("G_") and f.endswith(".pth")),
                      key=os.path.getmtime)
         tools_counts = checkpoint_tools(tmp, g_path)
+        uvr5_counts = separation_phases(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -2180,6 +2604,7 @@ def main():
          e["fcpe_batch_launches"]) = (c[e["name"]] for c in fcpe_counts)
         e["host_f0_launches"] = host_f0_counts[e["name"]]
         e["merged_model_launches"] = tools_counts[e["name"]]
+        e["uvr5_launches"] = sum(c[e["name"]] for c in uvr5_counts)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,25 @@ def fp32_math():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def cudnn_autotune():
+    """Let cuDNN time its algorithms once for each new convolution shape
+    (`torch.backends.cudnn.benchmark`), restoring the caller's flag after.
+    Its heuristic pick is not safe for the UVR5 nets: on an H100, for the
+    fp32 3x3 convolutions of 3 to 7 windows at a time, it took an FFT
+    algorithm of some 33,000 launches that ran the HP net 4x and the DeEcho
+    net 14-25x slower than the timed pick, with 20-25 GB of workspace.
+    The timed pick can differ from one process to the next, so two
+    processes may differ in the last bits."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark
+    cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        cudnn.benchmark = saved
+
+
 _constants = {}
 
 
