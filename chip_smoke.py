@@ -7,7 +7,8 @@ Phases, one line of output each (any failure exits non-zero):
   1. card and build: the card's name and power limit (nvidia-smi), then
      the nvcc build of every kernel source, all at once, with its seconds;
   2. each kernel against its plain PyTorch twin at the main path's shapes
-     (v2/48k, 10 s input in a 16 s bucket), cuDNN and cuBLAS with TF32 off
+     (v2/48k, 10 s input in a 16 s bucket; K2 and K3 at each of the four
+     decoder levels), cuDNN and cuBLAS with TF32 off
      as in the port's entry points: max abs / rel error and the median ms
      of both, from CUDA events after a warm-up, beside the kernel's bound
      at the peak it uses (the tensor cores as 3xTF32) and at the fp32 FMA
@@ -150,7 +151,33 @@ Phases, one line of output each (any failure exits non-zero):
      model and a 5 s mix: both WAVs hold DeviceSeparator's output within
      2 LSB (the app reports a failure and goes on, so this check is what
      catches one); each U phase prints its seconds;
+ D1. a long file across devices: a 3-minute voice (3 silence-split
+     chunks in one bucket) through VC.vc_single(chunk_parallel=True) on
+     make_mesh() over the visible cards, pm and rmvpe with the index, 1
+     warm-up + 3 timed: wall ms, CUDA-event spans, the profiler's busy ms
+     and share, peak memory, launches (6 K1 / 72 K2 a call of at most
+     ROWS_PER_CALL rows), beside the sequential path's wall and launches
+     on the same file; deterministic: the chunks whose own bucket is the
+     common one against the sequential path (4 LSB on > 99.9% of
+     samples), a mesh that names the card twice against one shard (1
+     LSB), 12 s in 3 chunks of a small geometry on the card against the
+     CPU (relative L2 < 1e-3); the peak memory of a 20-minute file; a
+     short chunk-parallel conversion on the one-resblock model (K3);
+ D2. B utterances as one batch: batch_convert of 8 x 10 s voices in a
+     16 s bucket, pm and the index, one call: wall, spans, busy share,
+     peak memory, launches (6 K1 / 72 K2), beside one vc_single;
+     deterministic: every row against its single conversion (1 LSB on
+     > 99.9% of samples); the one-resblock model on 2 rows (K3);
+ D3. `python -m tpu_rvc_torch.apps.convert --chunk-parallel` in a
+     process of its own on D1's file (within 2 LSB of vc_single's
+     output), `apps.convert_batch` on a folder of 3 voices (3 "Success"
+     lines in order, 3 files), `apps.assets gen` then `check` on a
+     temporary root (exit 0, then 1 after a byte changes); then the
+     kernels against their batched plain twins at D1's and D2's shapes
+     (K1 also over a one-frame filler row, K2 and K3 at every decoder
+     level); each D phase prints its seconds;
 then one JSON line of kernels, the card line again, and the result line.
+Each phase line carries `t_s`, the seconds since the script started.
 """
 
 import contextlib
@@ -175,8 +202,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 W = 10
 
 
+T0 = time.perf_counter()
+
+
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def card_line():
@@ -295,10 +328,12 @@ def stage_extra_hbm_ms(C, T, n_rb, n_d=3):
     return 4 * C * T * rows / PEAK_BYTES * 1e3
 
 
-def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1):
+def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1,
+                by_stream=True):
     """K2 (or K3 with one kernel size) at each (C, T) of `shapes`, for N
     streams at once when N > 1: then the batched launch must also equal
-    the same kernel launched stream by stream, bit for bit."""
+    the same kernel launched stream by stream, bit for bit (unless
+    `by_stream` is False: phase 11 holds that property)."""
     fn = rs.fused_stage if len(ks) > 1 else rs.fused_resblock
     rows = []
     for C, T in shapes:
@@ -308,13 +343,13 @@ def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1):
         torch.cuda.synchronize()
         max_abs, max_rel = compare(got, want, 1e-3, 1e-4, f"{name} C={C}")
         extra = {}
-        if N > 1:
-            by_stream = torch.stack([fn(x[n], sw) for n in range(N)])
-            if not torch.equal(got, by_stream):
+        if N > 1 and by_stream:
+            each = torch.stack([fn(x[n], sw) for n in range(N)])
+            if not torch.equal(got, each):
                 raise AssertionError(
                     f"{name} C={C} T={T}: the launch over {N} streams "
                     "differs from the stream-by-stream launches by "
-                    f"{float((got - by_stream).abs().max())}")
+                    f"{float((got - each).abs().max())}")
             extra = dict(streams=N, equals_stream_by_stream_bitwise=True,
                          stream_by_stream_ms=median_ms(lambda: [
                              fn(x[n], sw) for n in range(N)], iters=20))
@@ -382,7 +417,7 @@ def check_kernels():
     stages = [(256, 19176), (128, 191760), (64, 383520), (32, 767040)]
     k1 = check_attention(kr, g, 1598, ([1598, 1598], [1598, 1287]))
     k2 = check_stage(rs, g, "fused_stage", stages, ks)
-    k3 = check_stage(rs, g, "fused_resblock", [(64, 383520)], (7,))
+    k3 = check_stage(rs, g, "fused_resblock", stages, (7,))
     s1 = check_attention(kr, g, STREAM_T, ([STREAM_T, STREAM_T],),
                          "kernel_stream")
     s2 = check_stage(rs, g, "fused_stage", STREAM_STAGES, ks, "kernel_stream")
@@ -2539,6 +2574,461 @@ def separation_phases(tmp):
             separate_app(tmp)]
 
 
+# ---------------------------------------------------------------------------
+# D1-D3: conversion across devices (parallel/chunks.py, parallel/batch.py)
+# and the convert, convert_batch and assets apps
+# ---------------------------------------------------------------------------
+
+LONG_S = 180.0        # D1: 3 chunks at x_center 60 / x_max 65
+LONG_PEAK_S = 1200.0  # D1: the 20-minute file whose peak memory is read
+SMALL_GEOMETRY = dict(x_pad=0.5, x_query=1.0, x_center=4.0, x_max=5.0)
+BATCH_ROWS = 8        # D2: 8 x 10 s in a 16 s bucket
+SAME_LSB = 4          # chunk-parallel vs sequential, common-bucket chunks
+SHARD_LSB = 1         # two logical shards vs one; batch rows vs single
+APP_LSB = 2           # the app's file vs the library (cuDNN per process)
+
+
+def chunk_table(pipe, audio16):
+    """convert_long's chunk table for `audio16`: (true lengths, common
+    bucket, frames of the bucket, output sample indices of the chunks
+    whose own bucket is the common one)."""
+    from tpu_rvc_torch.audio.dsp import highpass_filter
+    from tpu_rvc_torch.pipeline.vc import (WINDOW, _bucket, _feat_frames,
+                                           chunk_spans, silence_chunk_bounds)
+
+    bounds = silence_chunk_bounds(highpass_filter(audio16), pipe.t_center,
+                                  pipe.t_query, pipe.t_max)
+    lens = [n for _, n, _ in chunk_spans(len(audio16) + 2 * pipe.t_pad,
+                                         bounds, pipe.t_pad2)]
+    bucket = _bucket(max(lens))
+    frames = min(bucket // WINDOW, _feat_frames(bucket))
+    idx, pos = [], 0
+    for n in lens:
+        size = min(n // WINDOW, frames) * pipe.synth.hop - 2 * pipe.t_pad_tgt
+        if _bucket(n) == bucket:
+            idx.append(np.arange(pos, pos + size))
+        pos += size
+    return lens, bucket, frames, np.concatenate(idx)
+
+
+def lsb_check(got, want, lsb, what, share=0.999):
+    """int16 outputs of one shape, within `lsb` on more than `share` of
+    the samples -> (share within, max difference)."""
+    if got.shape != want.shape or got.dtype != np.int16:
+        raise AssertionError(f"{what}: {got.dtype} {got.shape} against "
+                             f"{want.dtype} {want.shape}")
+    d = np.abs(got.astype(np.int32) - want)
+    within = float(np.mean(d <= lsb))
+    if not within > share:
+        raise AssertionError(f"{what}: only {within} of samples within "
+                             f"{lsb} LSB (max {int(d.max())})")
+    return within, int(d.max())
+
+
+def device_pipeline(model, dev, deterministic=True, rmvpe_root=None,
+                    **geometry):
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.models.loader import load_synthesizer
+    from tpu_rvc_torch.pipeline.vc import Pipeline
+
+    synth, _ = load_synthesizer(model, dev)
+    kw = dict(noise_scale=0.0, deterministic=True) if deterministic else {}
+    return Pipeline(48000, hubert=hubert_for_version("v2", dev), synth=synth,
+                    rmvpe_root=rmvpe_root or "assets/rmvpe", device=dev,
+                    **kw, **geometry)
+
+
+def timed_runs(fn, n_timed=3):
+    """1 warm-up, then n_timed runs on the host clock with their spans and
+    launches -> (walls, median spans, launches of the last run, output)."""
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.utils import timing
+
+    fn()
+    walls, spans = [], []
+    for _ in range(n_timed):
+        timing.enable()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(launch_counts)
+        spans.append(timing.read())
+        timing.disable()
+    split = {k: float(np.median([s.get(k, 0.0) for s in spans]))
+             for k in spans[-1]}
+    return walls, split, counts, out
+
+
+def want_launches(hp, calls, n_rb=None):
+    """K1 and K2 (or K3 on a one-resblock model) launches of `calls`
+    device calls of `Synthesizer.infer`."""
+    n_rb = len(hp.model.resblock_kernel_sizes) if n_rb is None else n_rb
+    stage = 6 * n_rb * len(hp.model.upsample_rates) * calls
+    return {"banded_rel_attention": hp.model.n_layers * calls,
+            "fused_stage": stage if n_rb > 1 else 0,
+            "fused_resblock": stage if n_rb == 1 else 0}
+
+
+def long_file(tmp, index):
+    """D1: convert_long on the card through `VC.vc_single(chunk_parallel=
+    True)` -> (launches of one conversion with pm, kernel shapes)."""
+    from tpu_rvc_torch.audio.io import load_audio
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.core.mesh import make_mesh
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.parallel import convert_long
+    from tpu_rvc_torch.parallel.chunks import ROWS_PER_CALL
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t0 = time.perf_counter()
+    hp = hparams_for("v2", 48000)
+    model = os.path.join(tmp, "v2_48k.pth")
+    wav = os.path.join(tmp, "voice_3min.wav")
+    write_voice(wav, LONG_S, seed=41)
+    audio16 = load_audio(wav, 16000)
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    lens, bucket, frames, same = chunk_table(vc.pipeline, audio16)
+    calls = -(-len(lens) // ROWS_PER_CALL)
+    n_out = sum(min(n // 160, frames) * 480 - 2 * vc.pipeline.t_pad_tgt
+                for n in lens)
+    figures, main_counts = {}, None
+    for method in ("pm", "rmvpe"):
+        kw = dict(f0_method=method, index=index, index_rate=0.75)
+        run = lambda: vc.vc_single(0, wav, chunk_parallel=True,  # noqa
+                                   **kw)[1][1]
+        torch.cuda.reset_peak_memory_stats()
+        walls, spans, counts, out = timed_runs(run)
+        check_output(out, n_out, f"chunk-parallel {method}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if counts != want_launches(hp, calls):
+            raise AssertionError(f"convert_long {method} launched {counts}, "
+                                 f"expected {want_launches(hp, calls)}")
+        busy, top = device_busy_ms(run)
+        seq = lambda: vc.vc_single(0, wav, **kw)[1][1]  # noqa: E731
+        seq_walls, seq_spans, seq_counts, seq_out = timed_runs(seq, 1)
+        check_output(seq_out, n_out, f"sequential {method}")
+        figures[method] = dict(
+            wall_ms=walls, wall_ms_median=float(np.median(walls)),
+            span_ms=spans, device_busy_ms=busy,
+            busy_share=None if busy is None else busy / float(
+                np.median(walls)),
+            top_kernels=[[nm[:50], ms, c] for nm, ms, c in top[:5]],
+            peak_mem_gb=peak, launches=counts,
+            sequential_wall_ms=seq_walls[0], sequential_span_ms=seq_spans,
+            sequential_launches=seq_counts)
+        main_counts = main_counts or counts
+    say("long_file", input_s=LONG_S, chunks=len(lens), chunk_samples=lens,
+        bucket_s=bucket / 16000, frames=frames, rows_per_call=ROWS_PER_CALL,
+        calls=calls, mesh="make_mesh() over the visible cards",
+        cards=torch.cuda.device_count(), **figures)
+
+    # deterministic engines
+    det = device_pipeline(model, "cuda")
+    par = convert_long(det, 0, audio16, make_mesh(), f0_method="pm",
+                       index=index, index_rate=0.75, rms_mix_rate=0.25)
+    seq = det.pipeline(0, audio16, [0.0] * 3, 0, "pm", index, 0.75, 1, 3, 0,
+                       0.25, 0.33)
+    same_share, same_max = lsb_check(par[same], seq[same], SAME_LSB,
+                                     "chunk-parallel vs sequential")
+    reset_launch_counts()
+    twice = convert_long(det, 0, audio16, make_mesh(devices=["cuda:0"] * 2),
+                         f0_method="pm", index=index, index_rate=0.75,
+                         rms_mix_rate=0.25)
+    twice_counts = dict(launch_counts)
+    shard_share, shard_max = lsb_check(twice, par, SHARD_LSB,
+                                       "two logical shards vs one")
+    # 12 s in 3 chunks of the small geometry: the card against the CPU
+    short = voice(12.0, seed=42)
+    outs = [convert_long(device_pipeline(model, dev, **SMALL_GEOMETRY), 0,
+                         short, make_mesh(devices=[dev]), f0_method="pm",
+                         rms_mix_rate=0.25).astype(np.float64)
+            for dev in ("cuda", "cpu")]
+    rel = rel_l2(outs[0], outs[1], "chunk-parallel 12 s")
+    say("long_file_checks", same_bucket_samples=int(same.size),
+        samples=int(par.size), same_within_lsb=same_share,
+        same_max_lsb=same_max, lsb_limit=SAME_LSB,
+        two_shards_within_lsb=shard_share, two_shards_max_lsb=shard_max,
+        two_shards_launches=twice_counts, card_vs_cpu_12s_rel_l2=rel)
+
+    # the peak of a 20-minute file, ROWS_PER_CALL rows a call
+    audio20 = np.resize(audio16, int(LONG_PEAK_S * 16000))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    out20 = convert_long(vc.pipeline, 0, audio20, make_mesh(),
+                         f0_method="pm", index=index, index_rate=0.75,
+                         rms_mix_rate=0.25)
+    wall20 = time.perf_counter() - t1
+    # one chunk a t_center step (silence_chunk_bounds), without its scan
+    n20 = (audio20.size - 1) // vc.pipeline.t_center + 1
+    calls20 = -(-n20 // ROWS_PER_CALL)
+    if dict(launch_counts) != want_launches(hp, calls20) or \
+            not np.abs(out20).max() > 0:
+        raise AssertionError(f"20-minute file: launches "
+                             f"{dict(launch_counts)}, peak {out20.max()}")
+    say("long_file_peak", input_s=LONG_PEAK_S, chunks=n20,
+        calls=calls20, rows_per_call=ROWS_PER_CALL, wall_s=wall20,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        output_samples=int(out20.size))
+
+    # the one-resblock model: K3 on a short chunk-parallel conversion
+    rb = device_pipeline(os.path.join(tmp, "v2_48k_rb1.pth"), "cuda",
+                         deterministic=False, **SMALL_GEOMETRY)
+    rb_lens, _, rb_frames, _ = chunk_table(rb, short)
+    reset_launch_counts()
+    out_rb = convert_long(rb, 0, short, make_mesh(), f0_method="pm")
+    rb_counts = dict(launch_counts)
+    rb_calls = -(-len(rb_lens) // ROWS_PER_CALL)
+    if rb_counts != want_launches(hp, rb_calls, n_rb=1) or \
+            not np.abs(out_rb).max() > 0:
+        raise AssertionError(f"one-resblock convert_long: {rb_counts}")
+    say("long_file_single_resblock", input_s=12.0, chunks=len(rb_lens),
+        frames=rb_frames, launches=rb_counts)
+    phase_seconds("D1", t0)
+    shapes = dict(frames=frames, lengths=[min(n // 160, frames)
+                                          for n in lens],
+                  rb_frames=rb_frames, rb_rows=len(rb_lens))
+    return main_counts, rb_counts, shapes
+
+
+def batched_utterances(tmp, index):
+    """D2: batch_convert of 8 x 10 s voices in one 16 s bucket -> the
+    launches of one dispatch."""
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.core.mesh import make_mesh
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.parallel import batch_convert
+    from tpu_rvc_torch.pipeline.vc import VC, _bucket, _feat_frames
+
+    t0 = time.perf_counter()
+    hp = hparams_for("v2", 48000)
+    model = os.path.join(tmp, "v2_48k.pth")
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    pad = vc.pipeline.t_pad
+    rows = np.stack([np.pad(voice(10.0, seed=50 + i), (pad, pad),
+                            mode="reflect") for i in range(BATCH_ROWS)])
+    mesh = make_mesh()
+    kw = dict(f0_method="pm", index=index, index_rate=0.75)
+    run = lambda: batch_convert(vc.pipeline, rows,  # noqa: E731
+                                np.zeros(BATCH_ROWS, np.int64), mesh, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    walls, spans, counts, out = timed_runs(run)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_out = expected_len(160000, vc.x_pad, 480, 48000)
+    for i in range(BATCH_ROWS):
+        check_output(out[i], n_out, f"batch row {i}")
+    if counts != want_launches(hp, 1):
+        raise AssertionError(f"batch_convert launched {counts}, expected "
+                             f"{want_launches(hp, 1)}")
+    busy, top = device_busy_ms(run)
+    wav10 = os.path.join(tmp, "voice_10s.wav")
+    single = lambda: vc.vc_single(0, wav10, **kw)  # noqa: E731
+    single_walls = timed_runs(single)[0]
+    # deterministic: each row against its single conversion
+    det = device_pipeline(model, "cuda")
+    got = batch_convert(det, rows, np.zeros(BATCH_ROWS, np.int64), mesh, **kw)
+    arrays = det._index_arrays(index, 0.75)
+    shares = []
+    for i in range(BATCH_ROWS):
+        one = det._full(torch.as_tensor(rows[i], device="cuda"), 0.0, 0,
+                        True, arrays, 0.75, 0.33, 0.25, det._generator(i),
+                        "pm").cpu().numpy()
+        shares.append(lsb_check(got[i], one, SHARD_LSB, f"batch row {i}"))
+    say("batched_utterances", rows=BATCH_ROWS, input_s=10.0, bucket_s=16.0,
+        wall_ms=walls, wall_ms_median=float(np.median(walls)),
+        wall_ms_per_utterance=float(np.median(walls)) / BATCH_ROWS,
+        single_vc_single_wall_ms_median=float(np.median(single_walls)),
+        span_ms=spans, device_busy_ms=busy,
+        busy_share=None if busy is None else busy / float(np.median(walls)),
+        top_kernels=[[nm[:50], ms, c] for nm, ms, c in top[:5]],
+        peak_mem_gb=peak, launches=counts,
+        rows_within_lsb=[s for s, _ in shares],
+        rows_max_lsb=[m for _, m in shares])
+    # the one-resblock model: K3 over 2 rows of 3 s
+    rb = device_pipeline(os.path.join(tmp, "v2_48k_rb1.pth"), "cuda",
+                         deterministic=False)
+    rb_rows = np.stack([np.pad(voice(3.0, seed=60 + i), (pad, pad),
+                               mode="reflect") for i in range(2)])
+    rb_bucket = _bucket(rb_rows.shape[1])
+    rb_frames = min(rb_bucket // 160, _feat_frames(rb_bucket))
+    reset_launch_counts()
+    rb_out = batch_convert(rb, rb_rows, [0, 0], mesh, f0_method="pm")
+    rb_counts = dict(launch_counts)
+    if rb_counts != want_launches(hp, 1, n_rb=1) or \
+            not np.abs(rb_out).max() > 0:
+        raise AssertionError(f"one-resblock batch_convert: {rb_counts}")
+    say("batched_utterances_single_resblock", rows=2, input_s=3.0,
+        launches=rb_counts)
+    phase_seconds("D2", t0)
+    return counts, rb_counts, rb_frames
+
+
+def app(module, *args, timeout=600):
+    """`python -m <module> args` in a process of its own, from the repo."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    return proc, time.perf_counter() - t0
+
+
+def conversion_apps(tmp, index):
+    """D3: the convert, convert_batch and assets apps in processes of their
+    own."""
+    from tpu_rvc_torch.audio.io import load_wav, save_wav
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t0 = time.perf_counter()
+    model = os.path.join(tmp, "v2_48k.pth")
+    wav = os.path.join(tmp, "voice_3min.wav")
+    index_path = os.path.join(tmp, "random_index.npz")
+    index.save(index_path)
+    out = os.path.join(tmp, "app_convert.wav")
+    proc, convert_s = app(
+        "tpu_rvc_torch.apps.convert", "--input", wav, "--output", out,
+        "--model", model, "--index", index_path, "--hubert", "random",
+        "--rmvpe-root", tmp, "--f0-method", "pm", "--index-rate", "0.75",
+        "--rms-mix-rate", "0.25", "--chunk-parallel")
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"convert app failed: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-2000:]}")
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    _, (sr, lib) = vc.vc_single(0, wav, f0_method="pm", index=index,
+                                index_rate=0.75, rms_mix_rate=0.25,
+                                chunk_parallel=True)
+    got, got_sr = load_wav(out)
+    got = np.round(got * 32768.0).astype(np.int16)
+    if got_sr != sr:
+        raise AssertionError(f"convert app wrote {got_sr} Hz")
+    app_share, app_max = lsb_check(got, lib, APP_LSB, "convert app vs "
+                                   "vc_single", share=1.0 - 1e-9)
+
+    src = os.path.join(tmp, "batch_in")
+    dst = os.path.join(tmp, "batch_out")
+    os.makedirs(src, exist_ok=True)
+    for i, seconds in enumerate((2.0, 3.0, 4.0)):
+        save_wav(os.path.join(src, f"v{i}.wav"), voice(seconds, 70 + i),
+                 16000)
+    proc_b, batch_s = app(
+        "tpu_rvc_torch.apps.convert_batch", "--input-dir", src,
+        "--output-dir", dst, "--model", model, "--hubert", "random",
+        "--rmvpe-root", tmp, "--f0-method", "pm")
+    lines = [ln for ln in proc_b.stdout.splitlines() if " -> " in ln]
+    names = [ln.split(" -> ")[0] for ln in lines]
+    if proc_b.returncode != 0 or names != [f"v{i}.wav" for i in range(3)] \
+            or not all(" -> Success (" in ln for ln in lines) or \
+            sorted(os.listdir(dst)) != [f"v{i}.wav.wav" for i in range(3)]:
+        raise AssertionError(f"convert_batch app: {proc_b.stdout[-2000:]} "
+                             f"{proc_b.stderr[-2000:]}")
+
+    root = os.path.join(tmp, "asset_root")
+    os.makedirs(os.path.join(root, "assets"), exist_ok=True)
+    files = []
+    for name, data in (("a.bin", b"alpha" * 100), ("b.pth", bytes(4096))):
+        files.append(os.path.join(root, "assets", name))
+        with open(files[-1], "wb") as f:
+            f.write(data)
+    env = os.path.join(root, "sha256.env")
+    gen, _ = app("tpu_rvc_torch.apps.assets", "gen", "--out", env, *files)
+    good, _ = app("tpu_rvc_torch.apps.assets", "check", "--root", root)
+    with open(files[1], "r+b") as f:
+        f.write(b"\x01")
+    bad, _ = app("tpu_rvc_torch.apps.assets", "check", "--root", root)
+    if (gen.returncode, good.returncode, bad.returncode) != (0, 0, 1):
+        raise AssertionError(f"assets app: gen {gen.returncode}, check "
+                             f"{good.returncode} then {bad.returncode}: "
+                             f"{gen.stderr[-1000:]} {good.stderr[-1000:]}")
+    say("conversion_apps", convert_s=convert_s,
+        convert_stdout=proc.stdout.strip().splitlines()[-2:],
+        convert_within_lsb=app_share, convert_max_lsb=app_max,
+        lsb_limit=APP_LSB, convert_batch_s=batch_s, convert_batch_lines=lines,
+        assets_exit_codes=[gen.returncode, good.returncode, bad.returncode])
+    phase_seconds("D3", t0)
+
+
+def batched_offline_kernels(shapes):
+    """Each kernel against its batched plain twin at D1's and D2's shapes:
+    K1 over D1's rows (and over the last row with a one-frame filler row
+    of a second logical shard), K2 at D1's (n, C, T) and D2's (8, C, T),
+    K3 at the one-resblock model's chunk-parallel and batched shapes."""
+    from tpu_rvc_torch.ops import kernels as kr
+    from tpu_rvc_torch.ops.kernels import resblock as rs
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ks = (3, 7, 11)
+    F, lens = shapes["frames"], shapes["lengths"]
+    n = len(lens)
+    level = lambda frames: [(256, frames * 12), (128, frames * 120),  # noqa
+                            (64, frames * 240), (32, frames * 480)]
+    long1 = check_attention(kr, g, F, ([x for x in lens for _ in (0, 1)],),
+                            "kernel_long")
+    filler = check_attention(kr, g, F, ([lens[-1]] * 2 + [1, 1],),
+                             "kernel_long_filler")
+    long2 = check_stage(rs, g, "fused_stage", level(F), ks, "kernel_long",
+                        N=n, by_stream=False)
+    long3 = check_stage(rs, g, "fused_resblock", level(shapes["rb_frames"]),
+                        (7,), "kernel_long", N=shapes["rb_rows"],
+                        by_stream=False)
+    b1 = check_attention(kr, g, 1598, ([1598] * (2 * BATCH_ROWS),),
+                         "kernel_batch_offline")
+    b2 = check_stage(rs, g, "fused_stage", level(1598), ks,
+                     "kernel_batch_offline", N=BATCH_ROWS, by_stream=False)
+    b3 = check_stage(rs, g, "fused_resblock",
+                     level(shapes["rb_batch_frames"]), (7,),
+                     "kernel_batch_offline", N=2, by_stream=False)
+    total = lambda rows, i: sum(r[i] for r in rows)  # noqa: E731
+
+    def rows_entry(prefix, rows, shape, worst):
+        return {f"{prefix}_shape": shape, f"{prefix}_ms": total(rows, 1),
+                f"{prefix}_plain_ms": total(rows, 2),
+                f"{prefix}_bound_ms": total(rows, 3),
+                f"{prefix}_bound_by": rows[0][4],
+                f"{prefix}_max_abs_err": max(r[0] for r in rows + worst)}
+
+    return {
+        "banded_rel_attention": {
+            **rows_entry("long", long1, [2 * n, F, 96], filler),
+            **rows_entry("batch_offline", b1, [2 * BATCH_ROWS, 1598, 96],
+                         [])},
+        "fused_stage": {
+            **rows_entry("long", long2, [n, "C", f"{F} x hop"], []),
+            **rows_entry("batch_offline", b2,
+                         [BATCH_ROWS, "C", "1598 x hop"], [])},
+        "fused_resblock": {
+            **rows_entry("long", long3, [shapes["rb_rows"], "C",
+                                         f"{shapes['rb_frames']} x hop"],
+                         []),
+            **rows_entry("batch_offline", b3, [
+                2, "C", f"{shapes['rb_batch_frames']} x hop"], [])}}
+
+
+def across_devices(tmp):
+    """D1-D3 and the batched offline kernel rows -> (per kernel name: the
+    extra keys of the `kernels` line)."""
+    from tpu_rvc_torch.core.device import fp32_math
+
+    index = random_index()
+    long_counts, long_rb_counts, shapes = long_file(tmp, index)
+    batch_counts, batch_rb_counts, shapes["rb_batch_frames"] = \
+        batched_utterances(tmp, index)
+    conversion_apps(tmp, index)
+    with fp32_math():
+        extra = batched_offline_kernels(shapes)
+    for name, e in extra.items():
+        rb = name == "fused_resblock"
+        e["long_launches"] = (long_rb_counts if rb else long_counts)[name]
+        e["batch_offline_launches"] = (batch_rb_counts if rb
+                                       else batch_counts)[name]
+    return extra
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2591,6 +3081,7 @@ def main():
                      key=os.path.getmtime)
         tools_counts = checkpoint_tools(tmp, g_path)
         uvr5_counts = separation_phases(tmp)
+        device_rows = across_devices(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -2605,6 +3096,7 @@ def main():
         e["host_f0_launches"] = host_f0_counts[e["name"]]
         e["merged_model_launches"] = tools_counts[e["name"]]
         e["uvr5_launches"] = sum(c[e["name"]] for c in uvr5_counts)
+        e.update(device_rows[e["name"]])
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -235,6 +235,26 @@ def test_resblock_kernel_stream_axis(rng, cuda, N, T):
 
 
 @pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_card(rng, cuda):
+    """With the first card current, each wrapper launches on the card its
+    tensors lie on (the second) and leaves the first current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    q, k, v, ek, ev, lens = attn_inputs(rng, 4, 77, 96, [77, 64, 5, 1])
+    args = [torch.from_numpy(a).to(other) for a in (q, k, v, ek, ev, lens)]
+    xb, sw = batched_stage_inputs(rng, 2, 64, 7200, (7,), other)
+    with torch.cuda.device(0):
+        got_attn = banded_rel_attention(*args, W)
+        got_rb = fused_resblock(xb, sw)
+        assert torch.cuda.current_device() == 0
+    torch.testing.assert_close(got_attn, banded_rel_attention_plain(*args, W),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_rb, stage_plain(xb, sw), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lengths", [[281] * 16,
                                      [281, 281, 250, 250, 17, 17, 1, 1] * 2])
 def test_rel_attention_kernel_sixteen_rows(rng, cuda, lengths):
@@ -457,3 +477,35 @@ def test_torchgate_on_the_card(cuda):
         got = TorchGate(16000, n_fft=640, device="cuda", **kw)(x, x[:4000])
         want = TorchGate(16000, n_fft=640, device="cpu", **kw)(x, x[:4000])
         assert np.abs(got - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_convert_long_over_two_cards(cuda):
+    """convert_long with its chunk rows over two distinct cards agrees
+    with one card within 1 LSB, launches both kernels, and leaves the
+    first card current."""
+    from tpu_rvc_torch.core.mesh import make_mesh
+    from tpu_rvc_torch.parallel import convert_long
+    from tpu_rvc_torch.pipeline.vc import Pipeline
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    eng = small_stream_engine("cuda")
+    pipe = Pipeline(16000, hubert=eng.hubert, synth=eng.synth,
+                    noise_scale=0.0, deterministic=True, device="cuda:0",
+                    x_pad=0.5, x_query=1.0, x_center=4.0, x_max=5.0)
+    t = np.arange(11 * 16000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (0.5 + 0.5 * np.sin(
+        2 * np.pi * 0.7 * t))).astype(np.float32)
+    one = convert_long(pipe, 0, audio, make_mesh(devices=["cuda:0"]),
+                       f0_method="pm")
+    reset_launch_counts()
+    with torch.cuda.device(0):
+        two = convert_long(pipe, 0, audio,
+                           make_mesh(devices=["cuda:0", "cuda:1"]),
+                           f0_method="pm")
+        assert torch.cuda.current_device() == 0
+    assert launch_counts["banded_rel_attention"] > 0
+    assert launch_counts["fused_stage"] > 0
+    assert one.shape == two.shape and np.abs(one).max() > 0
+    assert np.abs(one.astype(np.int32) - two).max() <= 1

@@ -72,6 +72,14 @@ def device_constant(key, make, device) -> torch.Tensor:
 
 
 def _draw(fn, shape, generator, like):
+    if isinstance(generator, (list, tuple)):
+        # one generator a row: row i is what generator i draws for a batch
+        # of one, so a batched conversion repeats each single one's noise
+        if shape[0] not in (1, len(generator)):
+            raise ValueError(f"{len(generator)} generators for {shape[0]} "
+                             "rows")
+        return torch.cat([_draw(fn, (1, *shape[1:]), g, like)
+                          for g in generator])
     dev = like.device if generator is None else generator.device
     out = fn(tuple(shape), generator=generator, device=dev, dtype=like.dtype)
     return out.to(like.device)
@@ -81,7 +89,8 @@ def draw_normal(shape, generator: Optional[torch.Generator],
                 like: torch.Tensor) -> torch.Tensor:
     """Standard normal noise of `like`'s dtype on `like`'s device, drawn
     where `generator` lives: a CPU generator gives the same numbers for a
-    tensor on any device (the model hash relies on it)."""
+    tensor on any device (the model hash relies on it).  A list of
+    generators draws one row each."""
     return _draw(torch.randn, shape, generator, like)
 
 

@@ -121,7 +121,8 @@ class Synthesizer(nn.Module):
         """Inference (reference synthesizers.py:160).  deterministic=True
         zeroes every random term (prior noise, sine noise); `noise`
         supplies the prior eps (B, T, C) from outside; `generator` draws
-        them otherwise."""
+        them otherwise, or a list of B generators, one a row
+        (`core/device.py` `draw_normal`)."""
         g = self.emb_g(sid.long())[:, :, None]               # (B, gin, 1)
         streamed = skip_head is not None and return_length is not None
         head = int(skip_head) if streamed else 0

@@ -1,5 +1,7 @@
-"""Launch counters, one plain integer per kernel wrapper, and the guard
-every wrapper runs first."""
+"""Launch counters, one plain integer per kernel wrapper, the guard every
+wrapper runs first, and the device its launches run on."""
+
+import contextlib
 
 import torch
 
@@ -21,3 +23,17 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name}: an input requires grad; the kernel has no backward, "
             "so training runs the module's differentiable path (train=True)")
+
+
+
+def launch_device(x: torch.Tensor):
+    """The context a launch on x's card runs in: that card made the
+    thread's current device when it is not.  The libraries'
+    `cudaFuncSetAttribute` calls and launches act on the current device,
+    and `resblock.cu` reads the SM count of the first card it runs on
+    once: identical cards share it, so no kernel source changes for
+    several cards."""
+    if x.device.index is None or \
+            x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)

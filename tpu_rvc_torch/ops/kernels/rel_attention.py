@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from .counts import launch_counts, refuse_grad
+from .counts import launch_counts, launch_device, refuse_grad
 
 HEAD_WIDTHS = (32, 64, 96, 128)  # dk the kernel is built for
 MAX_WINDOW = 16
@@ -103,10 +103,11 @@ def banded_rel_attention(q, k, v, emb_rel_k, emb_rel_v, lengths,
                          f"{MAX_WINDOW}) unsupported")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   emb_rel_k.data_ptr(), emb_rel_v.data_ptr(),
-                   lengths.data_ptr(), out.data_ptr(), BH, T, dk, window,
-                   stream)
+    with launch_device(q):
+        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       emb_rel_k.data_ptr(), emb_rel_v.data_ptr(),
+                       lengths.data_ptr(), out.data_ptr(), BH, T, dk, window,
+                       stream)
     if rc != 0:
         raise RuntimeError(f"banded_rel_attention: CUDA error {rc}")
     launch_counts["banded_rel_attention"] += 1

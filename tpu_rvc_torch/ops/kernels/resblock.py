@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import RESBLOCK_CHANNELS as CHANNELS  # widths it is built for
-from .counts import launch_counts, refuse_grad
+from .counts import launch_counts, launch_device, refuse_grad
 
 LRELU_SLOPE = 0.1
 MAX_PAD = 32                       # (k - 1) / 2 * dilation at most
@@ -194,16 +194,17 @@ def _launch(x: torch.Tensor, sw: StageWeights, counter: str) -> torch.Tensor:
             raise RuntimeError(f"{counter}: CUDA error {rc}")
         launch_counts[counter] += 1
 
-    for r, K in enumerate(sw.kernel_sizes):
-        src = x
-        for m, d in enumerate(sw.dilations):
-            last = m == n_d - 1
-            dst = None if last else bufs[m % 2]
-            conv(src, sw.packed[r][2 * m], sw.b[r][2 * m], None, u, K, d,
-                 1, 1, 0)
-            conv(u, sw.packed[r][2 * m + 1], sw.b[r][2 * m + 1], src, dst,
-                 K, 1, 0, 0, 0 if not last else (1 if r == 0 else 2))
-            src = dst
+    with launch_device(x):
+        for r, K in enumerate(sw.kernel_sizes):
+            src = x
+            for m, d in enumerate(sw.dilations):
+                last = m == n_d - 1
+                dst = None if last else bufs[m % 2]
+                conv(src, sw.packed[r][2 * m], sw.b[r][2 * m], None, u, K,
+                     d, 1, 1, 0)
+                conv(u, sw.packed[r][2 * m + 1], sw.b[r][2 * m + 1], src,
+                     dst, K, 1, 0, 0, 0 if not last else (1 if r == 0 else 2))
+                src = dst
     return out
 
 

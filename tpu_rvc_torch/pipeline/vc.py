@@ -19,7 +19,11 @@ sample-aligned with the reference package.  The single-chunk path
 (`_full`, the JAX `_full_graph`) runs f0, conversion, trimming, RMS mix
 and int16 scaling on the device and fetches once; it takes the utterance
 only where the JAX package does (`tpu_rvc/pipeline/vc.py:342-344`): no
-silence split, no manual curve, and pm, rmvpe or fcpe, or no f0.  `times`
+silence split, no manual curve, and pm, rmvpe or fcpe, or no f0.
+`_convert_rows` and `_full_rows` are the two graphs over rows of one
+bucket, each row with its own true length, speaker and noise generator:
+`parallel/chunks.py` and `parallel/batch.py` run them over a device mesh,
+and `VC.vc_single(chunk_parallel=True)` takes the first.  `times`
 accumulates [npy, f0, infer] seconds like the reference.  `rmvpe_root`
 names the directory of `rmvpe.pt`, which must exist once f0_method="rmvpe"
 is asked for; fcpe needs its checkpoint (`f0/fcpe.py`), crepe an
@@ -31,7 +35,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +78,24 @@ def silence_chunk_bounds(audio: np.ndarray, t_center: int, t_query: int,
             win = audio_sum[t - t_query: t + t_query]
             opt_ts.append(t - t_query + int(np.argmin(win)))
     return opt_ts
+
+
+def chunk_spans(n_pad: int, opt_ts: List[int], t_pad2: int
+                ) -> List[Tuple[int, int, slice]]:
+    """The chunks of a reflect-padded signal of n_pad samples split at
+    `opt_ts` (`silence_chunk_bounds`), as the sequential loop cuts them
+    (reference pipeline.py:241-267): (start, length, f0 frame slice) each.
+    A chunk reaches t_pad2 + WINDOW past its split point; the last runs to
+    the end."""
+    spans = []
+    s = 0
+    for t in opt_ts:
+        t = t // WINDOW * WINDOW
+        spans.append((s, t + t_pad2 + WINDOW - s,
+                      slice(s // WINDOW, (t + t_pad2) // WINDOW)))
+        s = t
+    spans.append((s, n_pad - s, slice(s // WINDOW, None)))
+    return spans
 
 
 def _device_change_rms(source, sr1: int, target, sr2: int, rate: float):
@@ -133,37 +155,55 @@ class Pipeline:
         return index.device_arrays(self.device)
 
     @torch.no_grad()
+    @fp32_math()
+    def _convert_rows(self, audio_b, true_len, sids, pitch, pitchf,
+                      index_arrays, index_rate: float, protect: float,
+                      generators):
+        """n bucketed rows -> target-sr float audio (n, frames * hop): the
+        JAX `_chunk_graph`, vmapped.  audio_b: (n, bucket) at 16 kHz;
+        true_len: (n,) samples; sids: (n,); pitch/pitchf: (n, p_len_static)
+        or None; generators: one a row (`Synthesizer.infer`)."""
+        n, bucket = audio_b.shape
+        use_f0 = pitch is not None
+        true_len = torch.as_tensor(true_len, dtype=torch.int64,
+                                   device=self.device)
+        padding_mask = (torch.arange(bucket, device=self.device)[None]
+                        >= true_len[:, None])
+        with span("hubert", self.device):
+            feats = self.hubert(audio_b, padding_mask)        # (n, F, D)
+        feats0 = feats
+        if index_arrays is not None:
+            with span("retrieval", self.device):
+                feats = knn_blend(feats, *index_arrays, index_rate)
+        feats = torch.repeat_interleave(feats, 2, dim=1)
+        p_len_static = min(bucket // WINDOW, feats.shape[1])
+        feats = feats[:, :p_len_static]
+        if use_f0 and protect < 0.5:
+            feats0 = torch.repeat_interleave(feats0, 2,
+                                             dim=1)[:, :p_len_static]
+            pitchff = torch.where(pitchf > 0, 1.0, protect)[:, :, None]
+            feats = feats * pitchff + feats0 * (1 - pitchff)
+        true_frames = torch.clamp(true_len // WINDOW, max=p_len_static)
+        out = self.synth.infer(
+            feats, true_frames, torch.as_tensor(sids, device=self.device),
+            pitch if use_f0 else None, pitchf if use_f0 else None,
+            noise_scale=self.noise_scale, deterministic=self.deterministic,
+            generator=list(generators))
+        return out[:, :, 0]
+
+    @torch.no_grad()
     def _convert(self, audio_b, true_len: int, sid: int, pitch, pitchf,
                  index_arrays, index_rate: float, protect: float,
                  generator: torch.Generator):
         """One bucketed chunk -> target-sr float audio (the JAX
         `_chunk_graph`).  audio_b: (bucket,) at 16 kHz; pitch/pitchf:
         (p_len_static,) or None."""
-        bucket = audio_b.shape[0]
         use_f0 = pitch is not None
-        padding_mask = torch.arange(bucket, device=self.device) >= true_len
-        with span("hubert", self.device):
-            feats = self.hubert(audio_b[None], padding_mask[None])  # (1,F,D)
-        feats0 = feats
-        if index_arrays is not None:
-            with span("retrieval", self.device):
-                feats = knn_blend(feats[0], *index_arrays, index_rate)[None]
-        feats = torch.repeat_interleave(feats, 2, dim=1)
-        p_len_static = min(bucket // WINDOW, feats.shape[1])
-        feats = feats[:, :p_len_static]
-        if use_f0 and protect < 0.5:
-            feats0 = torch.repeat_interleave(feats0, 2, dim=1)[:, :p_len_static]
-            pitchff = torch.where(pitchf > 0, 1.0, protect)[None, :, None]
-            feats = feats * pitchff + feats0 * (1 - pitchff)
-        true_frames = min(true_len // WINDOW, p_len_static)
-        out = self.synth.infer(
-            feats, torch.tensor([true_frames], device=self.device),
-            torch.tensor([sid], device=self.device),
+        return self._convert_rows(
+            audio_b[None], [true_len], [sid],
             pitch[None] if use_f0 else None,
-            pitchf[None] if use_f0 else None,
-            noise_scale=self.noise_scale, deterministic=self.deterministic,
-            generator=generator)
-        return out[0, :, 0]
+            pitchf[None] if use_f0 else None, index_arrays, index_rate,
+            protect, [generator])[0]
 
     def _generator(self, seed: int, device=None) -> torch.Generator:
         return torch.Generator(
@@ -171,16 +211,19 @@ class Pipeline:
                 int(seed))
 
     @torch.no_grad()
-    def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
-              index_arrays, index_rate: float, protect: float,
-              rms_mix_rate: float, generator: torch.Generator,
-              f0_method: str):
-        """Single-chunk conversion of the bucketed, padded utterance
-        (the JAX `_full_graph`): f0 + conversion + pad trim + RMS mix +
-        int16, all on the device.  audio: (L,) with L a whole bucket."""
-        L = audio.shape[0]
+    @fp32_math()
+    def _full_rows(self, audio, f0_up_key: float, sids, use_f0: bool,
+                   index_arrays, index_rate: float, protect: float,
+                   rms_mix_rate: float, generators, f0_method: str):
+        """Single-chunk conversion of n padded utterances of one length L
+        (the JAX `_full_graph`, vmapped by `parallel/batch.py`): f0 +
+        conversion + pad trim + RMS mix + int16, all on the device.
+        audio: (n, L), padded up to the 1 s bucket inside -> int16
+        (n, samples), each row peak-scaled on its own."""
+        n, L = audio.shape
+        bucket = _bucket(L)
         p_len = L // WINDOW
-        p_len_static = min(L // WINDOW, _feat_frames(L))
+        p_len_static = min(bucket // WINDOW, _feat_frames(bucket))
         true_frames = min(p_len, p_len_static)
         pit = pitf = None
         if use_f0:
@@ -189,14 +232,29 @@ class Pipeline:
                          if f0_method in ("rmvpe", "fcpe") else None)
                 pitch, pitchf = device_f0(f0_method, audio, p_len, f0_up_key,
                                           model)
-            pit, pitf = pitch[:p_len_static], pitchf[:p_len_static]
-        out = self._convert(audio, L, sid, pit, pitf, index_arrays,
-                            index_rate, protect, generator)
-        out = out[: true_frames * self.synth.hop]
-        out = out[self.t_pad_tgt: out.shape[0] - self.t_pad_tgt]
-        src16 = audio[self.t_pad: L - self.t_pad]
-        out = _device_change_rms(src16, SR, out, self.tgt_sr, rms_mix_rate)
-        return _to_int16(out)
+            m = min(p_len, p_len_static)
+            pit = F.pad(pitch[:, :m], (0, p_len_static - m))
+            pitf = F.pad(pitchf[:, :m], (0, p_len_static - m))
+        audio_b = F.pad(audio, (0, bucket - L))
+        out = self._convert_rows(audio_b, [L] * n, sids, pit, pitf,
+                                 index_arrays, index_rate, protect,
+                                 generators)
+        out = out[:, : true_frames * self.synth.hop]
+        out = out[:, self.t_pad_tgt: out.shape[1] - self.t_pad_tgt]
+        src16 = audio[:, self.t_pad: L - self.t_pad]
+        return torch.stack([
+            _to_int16(_device_change_rms(src16[i], SR, out[i], self.tgt_sr,
+                                         rms_mix_rate)) for i in range(n)])
+
+    @torch.no_grad()
+    def _full(self, audio, f0_up_key: float, sid: int, use_f0: bool,
+              index_arrays, index_rate: float, protect: float,
+              rms_mix_rate: float, generator: torch.Generator,
+              f0_method: str):
+        """`_full_rows` for one utterance: audio (L,) -> int16."""
+        return self._full_rows(audio[None], f0_up_key, [sid], use_f0,
+                               index_arrays, index_rate, protect,
+                               rms_mix_rate, [generator], f0_method)[0]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -307,31 +365,32 @@ class Pipeline:
             times[1] += time.time() - t0
 
         audio_opt = []
-        s, t = 0, None
-        for t in opt_ts:
-            t = t // WINDOW * WINDOW
-            chunk = audio_pad_dev[s: t + self.t_pad2 + WINDOW]
-            sl = slice(s // WINDOW, (t + self.t_pad2) // WINDOW)
-            out = self.vc_chunk(chunk, sid, pitch[sl] if use_f0 else None,
+        for start, n, sl in chunk_spans(audio_pad.shape[0], opt_ts,
+                                        self.t_pad2):
+            out = self.vc_chunk(audio_pad_dev[start: start + n], sid,
+                                pitch[sl] if use_f0 else None,
                                 pitchf[sl] if use_f0 else None, index,
                                 index_rate, protect, times, noise_seed,
                                 noise_device)
-            audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
-            s = t
-        chunk = audio_pad_dev[t:] if t is not None else audio_pad_dev
-        tail = slice(t // WINDOW if t is not None else 0, None)
-        out = self.vc_chunk(chunk, sid, pitch[tail] if use_f0 else None,
-                            pitchf[tail] if use_f0 else None, index,
-                            index_rate, protect, times, noise_seed,
-                            noise_device)
-        audio_opt.append(out[self.t_pad_tgt: -self.t_pad_tgt])
+            audio_opt.append(out[self.t_pad_tgt: out.shape[0]
+                                 - self.t_pad_tgt])
+        return self.finish(torch.cat(audio_opt).cpu().numpy(), audio,
+                           rms_mix_rate, resample_sr)
 
-        result = torch.cat(audio_opt).cpu().numpy()
+    def finish(self, result: np.ndarray, audio16: np.ndarray,
+               rms_mix_rate: float, resample_sr: int) -> np.ndarray:
+        """The joined chunks' last steps, as the sequential path and
+        `parallel/chunks.py` take them (reference pipeline.py:295-300,
+        356-360): the RMS envelope of the high-passed 16 kHz input
+        `audio16` mixed in on the host, resampling on the device, peak
+        scaling to int16."""
         if rms_mix_rate != 1:
-            result = change_rms(audio, SR, result, self.tgt_sr, rms_mix_rate)
+            result = change_rms(audio16, SR, result, self.tgt_sr,
+                                rms_mix_rate)
         if self.tgt_sr != resample_sr and resample_sr >= SR:
-            result = resample_poly(torch.as_tensor(result[None]), self.tgt_sr,
-                                   resample_sr)[0].numpy()
+            result = resample_poly(
+                torch.as_tensor(result[None], device=self.device),
+                self.tgt_sr, resample_sr)[0].cpu().numpy()
         audio_max = np.abs(result).max() / 0.99
         max_int16 = 32768.0
         if audio_max > 1:
@@ -390,9 +449,14 @@ class VC:
                   index: Optional[FeatureIndex] = None,
                   index_rate: float = 0.75, filter_radius: int = 3,
                   resample_sr: int = 0, rms_mix_rate: float = 0.25,
-                  protect: float = 0.33, f0_file=None):
+                  protect: float = 0.33, f0_file=None,
+                  chunk_parallel: bool = False):
         """Convert one file (reference vc_single, modules.py:117) ->
-        (info, (sr, int16 audio))."""
+        (info, (sr, int16 audio)).  chunk_parallel=True converts a long
+        file's silence-split chunks as rows of one batch, split over every
+        visible card (`parallel/chunks.py` `convert_long`; on a CPU
+        pipeline one CPU shard); with an `f0_file` the sequential path
+        runs, as in the JAX package."""
         from tpu_rvc_torch.audio.io import load_audio
 
         if self.pipeline is None:
@@ -404,10 +468,24 @@ class VC:
         if audio_max > 1:
             audio = audio / audio_max
         times = [0.0, 0.0, 0.0]
-        out = self.pipeline.pipeline(
-            sid, audio, times, f0_up_key, f0_method, index, index_rate,
-            self.if_f0, filter_radius, resample_sr, rms_mix_rate, protect,
-            f0_file)
+        if chunk_parallel and f0_file is None:
+            from tpu_rvc_torch.core.mesh import make_mesh
+            from tpu_rvc_torch.parallel.chunks import convert_long
+            mesh = (make_mesh() if self.device.type == "cuda"
+                    else make_mesh(devices=[self.device]))
+            t0 = time.time()
+            out = convert_long(
+                self.pipeline, sid, audio, mesh, f0_up_key=f0_up_key,
+                f0_method=f0_method, index=index, index_rate=index_rate,
+                if_f0=self.if_f0, filter_radius=filter_radius,
+                resample_sr=resample_sr, rms_mix_rate=rms_mix_rate,
+                protect=protect)
+            times[2] += time.time() - t0
+        else:
+            out = self.pipeline.pipeline(
+                sid, audio, times, f0_up_key, f0_method, index, index_rate,
+                self.if_f0, filter_radius, resample_sr, rms_mix_rate,
+                protect, f0_file)
         tgt = (resample_sr if self.tgt_sr != resample_sr and
                resample_sr >= SR else self.tgt_sr)
         info = (f"npy: {times[0]:.2f}s, f0: {times[1]:.2f}s, "
@@ -416,7 +494,8 @@ class VC:
 
     def vc_multi(self, sid: int, paths: List[str], out_dir: str, **kwargs):
         """Convert several files into out_dir/<name>.wav (reference
-        vc_multi, modules.py:201); one result line per input, in order."""
+        vc_multi, modules.py:201); one result line per input, in order.
+        `kwargs` go to `vc_single`, `chunk_parallel` among them."""
         from tpu_rvc_torch.audio.io import save_wav
 
         os.makedirs(out_dir, exist_ok=True)

@@ -2,9 +2,10 @@
 
 `span(name, device)` marks a stage of the conversion (hubert, f0, enc_p,
 flow, decoder).  It costs nothing until `enable()` is called; then each
-span records a pair of CUDA events on the current stream when `device` is
-a CUDA device (the host clock otherwise), and `read()` synchronises once
-and returns the milliseconds per stage name summed since `enable()`.
+span records a pair of CUDA events on `device`'s current stream when it
+is a CUDA device (the host clock otherwise), and `read()` waits for each
+span's end event and returns the milliseconds per stage name summed since
+`enable()`.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ def span(name: str, device: torch.device):
         yield
         return
     if torch.device(device).type == "cuda":
+        stream = torch.cuda.current_stream(device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         yield
-        end.record()
+        end.record(stream)
     else:
         start = time.perf_counter()
         yield
@@ -51,10 +53,11 @@ def read() -> Dict[str, float]:
     out: Dict[str, float] = {}
     if not _records:
         return out
-    if any(isinstance(start, torch.cuda.Event) for _, start, _ in _records):
-        torch.cuda.synchronize()
     for name, start, end in _records:
-        ms = (start.elapsed_time(end) if isinstance(start, torch.cuda.Event)
-              else (end - start) * 1e3)
+        if isinstance(start, torch.cuda.Event):
+            end.synchronize()   # on its own card, whichever is current
+            ms = start.elapsed_time(end)
+        else:
+            ms = (end - start) * 1e3
         out[name] = out.get(name, 0.0) + ms
     return out
