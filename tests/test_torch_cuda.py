@@ -509,3 +509,64 @@ def test_convert_long_over_two_cards(cuda):
     assert launch_counts["fused_stage"] > 0
     assert one.shape == two.shape and np.abs(one).max() > 0
     assert np.abs(one.astype(np.int32) - two).max() <= 1
+
+
+def full_width_dp_run(tmp_path, world, layout, steps=2):
+    """`world` NCCL ranks, one a card, on `layout` ("replicated" or a
+    (data, model) mesh) against one process on cuda:0: v2/48k at full
+    width, fp32, 4 pinned rows of lengths (200, 163, 200, 110)."""
+    import dataclasses
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.tools.dist_steps import (Ranks, full_params,
+                                                make_batch, run_steps)
+    from tpu_rvc_torch.train.step import create_train_state
+
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA cards")
+    hp = hparams_for("v2", 48000)
+    hp = dataclasses.replace(hp, train=dataclasses.replace(
+        hp.train, fp16_run=False))
+    batches = [make_batch(hp, (200, 163, 200, 110), 21, 200,
+                          pins=(10, 120, 150, 60))] * steps
+    ranks = Ranks({"case": "steps", "hp": hp, "seed": 7, "device": "cuda",
+                   "timeout_s": 300, "threads": 4, "layouts": [layout],
+                   "batches": batches, "snapshots": list(range(1, steps + 1)),
+                   "keep": [1], "out": str(tmp_path / "ranks")}, world)
+    state = create_train_state(hp, seed=7, device="cuda:0")
+    one, _, one_params = run_steps(state, batches, (1,), full_params)
+    res = ranks.wait(600)
+    for r, rank in enumerate(res):
+        lay = rank["layouts"][0]
+        for i in range(steps):
+            for k, want in one[i].items():
+                got = lay["metrics"][i][k]
+                assert abs(got - want) <= 1e-4 * abs(want), (r, i, k)
+            assert lay["snapshots"][i + 1]["same_as_rank0"]
+        assert not any(rank["launches"].values())
+    # after one step: on the card two one-process runs already drift apart
+    # in more than 0.1% of the elements by the third (PERF.md)
+    got = res[0]["layouts"][0]["snapshots"][1]["params"]
+    diff = torch.cat([(got[k] - v).abs().flatten()
+                      for k, v in one_params[1].items()])
+    assert float(diff.max()) <= 2 * hp.train.learning_rate * 1.01
+    assert float((diff > 1e-6).float().mean()) < 1e-3
+    return res
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_over_two_cards(cuda, tmp_path):
+    """Two NCCL ranks, replicated: every loss term and grad norm within
+    1e-4 relative of one process on all 4 rows at both steps (cuDNN's
+    algorithms differ between 2 and 4 rows), the ranks' parameters
+    bit-identical, and after the first step within 2 lr of the one
+    process's, under 0.1% of them beyond 1e-6."""
+    full_width_dp_run(tmp_path, 2, "replicated")
+
+
+@pytest.mark.cuda
+def test_hsdp_step_over_four_cards(cuda, tmp_path):
+    """Four NCCL ranks on a (2, 2) mesh: as the two-card test, and the
+    state sharded over "model" before and after the steps."""
+    res = full_width_dp_run(tmp_path, 4, (2, 2))
+    for rank in res:
+        assert min(rank["layouts"][0]["sharded_frac"]) >= 0.5

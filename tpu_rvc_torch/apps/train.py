@@ -8,8 +8,14 @@ extract_f0_print,extract_feature_print,train}.py).
     python -m tpu_rvc_torch.apps.train train --exp-dir e --epochs 20
 
 Every step that computes runs on the card unless `--device cpu` is given.
-The JAX tool's multi-host flags have no counterpart: training is one
-device (DDP is queued in ROADMAP.md).
+Data-parallel training, one process a card (`parallel/multihost.py`):
+
+    torchrun --nproc-per-node N -m tpu_rvc_torch.apps.train train \
+        --multihost --exp-dir e ...
+
+or in every process `train --coordinator <host0>:<port> --num-processes N
+--process-id $i ...`.  The processes join over NCCL (gloo with `--device
+cpu`) before the first use of the card, each on its own card.
 """
 
 from __future__ import annotations
@@ -58,15 +64,33 @@ def cmd_index(args):
 
 def cmd_train(args):
     from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.parallel import multihost
     from tpu_rvc_torch.train.loop import run_training
+    device = args.device
+    if (args.multihost or args.coordinator or args.num_processes is not None
+            or args.process_id is not None):
+        if not (args.multihost or args.coordinator):
+            # training alone while the others wait would write
+            # conflicting checkpoints
+            raise SystemExit(
+                "--num-processes/--process-id require --coordinator "
+                "ip:port (or --multihost for torchrun's environment)")
+        device = multihost.initialize(
+            coordinator_address=args.coordinator or None,
+            num_processes=args.num_processes, process_id=args.process_id,
+            device=args.device)
     hp = hparams_for(args.version, args.sr)
     hp = dataclasses.replace(
         hp, train=dataclasses.replace(hp.train, batch_size=args.batch_size))
-    metrics = run_training(
-        args.exp_dir, hp, total_epochs=args.epochs, if_f0=bool(args.if_f0),
-        save_every_epoch=args.save_every, pretrain_g=args.pretrain_g,
-        pretrain_d=args.pretrain_d, name=args.name, author=args.author,
-        cache_in_hbm=args.cache_in_hbm, log_fn=print, device=args.device)
+    try:
+        metrics = run_training(
+            args.exp_dir, hp, total_epochs=args.epochs,
+            if_f0=bool(args.if_f0), save_every_epoch=args.save_every,
+            pretrain_g=args.pretrain_g, pretrain_d=args.pretrain_d,
+            name=args.name, author=args.author,
+            cache_in_hbm=args.cache_in_hbm, log_fn=print, device=device)
+    finally:
+        multihost.shutdown()
     print("final:", metrics)
 
 
@@ -122,6 +146,14 @@ def main(argv=None):
     st.add_argument("--cache-in-hbm", action="store_true",
                     help="keep all batches on the device after epoch 1 "
                          "(reference if_cache_data_in_gpu)")
+    st.add_argument("--multihost", action="store_true",
+                    help="join a data-parallel job from torchrun's "
+                         "environment (RANK, WORLD_SIZE, MASTER_ADDR)")
+    st.add_argument("--coordinator", default="",
+                    help="host0 ip:port of an explicit data-parallel job "
+                         "(reference MASTER_ADDR role)")
+    st.add_argument("--num-processes", type=int, default=None)
+    st.add_argument("--process-id", type=int, default=None)
     device_arg(st)
     st.set_defaults(fn=cmd_train)
 

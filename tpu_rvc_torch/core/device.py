@@ -71,6 +71,17 @@ def device_constant(key, make, device) -> torch.Tensor:
     return _constants[full_key]
 
 
+class RowGenerators(list):
+    """One generator a row, and `shared`, the generator of what a batch
+    draws once for all its rows (the sine source's initial phase in a
+    training step).  A plain list of generators draws even that row by
+    row."""
+
+    def __init__(self, rows, shared: torch.Generator):
+        super().__init__(rows)
+        self.shared = shared
+
+
 def _draw(fn, shape, generator, like):
     if isinstance(generator, (list, tuple)):
         # one generator a row: row i is what generator i draws for a batch

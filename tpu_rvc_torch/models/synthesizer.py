@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from tpu_rvc_torch.core.config import HParams
-from tpu_rvc_torch.core.device import draw_normal, fp32_math, resolve_device
+from tpu_rvc_torch.core.device import (draw_normal, draw_uniform,
+                                       fp32_math, resolve_device)
 from tpu_rvc_torch.nn.encoders import PosteriorEncoder, TextEncoder
 from tpu_rvc_torch.nn.flows import ResidualCouplingBlock
 from tpu_rvc_torch.nn.generators import Generator, NSFGenerator
@@ -83,7 +84,10 @@ class Synthesizer(nn.Module):
         (z, z_p, m_p, logs_p, m_q, logs_q)), masks (B, T, 1), latents
         (B, T, C).  `ids_slice` and `noise_eps` (B, T, C) pin the latent
         slice and the posterior draw, `deterministic` zeroes the sine
-        source's noise; every other draw comes from `generator`."""
+        source's noise; every other draw comes from `generator`, or from
+        a `core/device.py` `RowGenerators`, one generator a row (the
+        slice, the posterior eps, the sine noise) and one the batch shares
+        (the sine source's initial phase)."""
         g = self.emb_g(ds.long())[:, :, None]                 # (B, gin, 1)
         m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths,
                                          train=True)
@@ -95,7 +99,7 @@ class Synthesizer(nn.Module):
         seg = self.segment_size // self.hop
         if ids_slice is None:
             max_start = torch.clamp(y_lengths - seg - 1, min=1).float()
-            u = torch.rand(z.shape[0], generator=generator, device=z.device)
+            u = draw_uniform((z.shape[0],), generator, max_start)
             ids_slice = (u * max_start).to(torch.int32)
         idx = ids_slice.long()[:, None] + torch.arange(seg, device=z.device)
         z_slice = torch.gather(

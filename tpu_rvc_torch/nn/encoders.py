@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_rvc_torch.core.device import draw_normal
 from .attention import Encoder
 from .modules import WN, Conv1d, Linear
 
@@ -64,7 +65,7 @@ class PosteriorEncoder(nn.Module):
     """enc_q, training only (reference encoders.py:162;
     tpu_rvc/nn/encoders.py:70-104): linear spectrogram -> WN(16) ->
     (z, m, logs).  `eps` (B, T, C) pins the reparametrisation draw, else
-    it comes from `generator`."""
+    it comes from `generator` (or a list of them, one a row)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  hidden_channels: int, kernel_size: int = 5,
@@ -86,8 +87,7 @@ class PosteriorEncoder(nn.Module):
         stats = (self.proj(h) * x_mask).transpose(1, 2)      # (B, T, 2C)
         m, logs = torch.split(stats, self.out_channels, dim=-1)
         if eps is None:
-            eps = torch.randn(m.shape, generator=generator, device=m.device,
-                              dtype=m.dtype)
+            eps = draw_normal(m.shape, generator, m)
         mask = x_mask.transpose(1, 2)
         z = (m + eps.to(m.dtype) * torch.exp(logs)) * mask
         return z, m, logs, mask

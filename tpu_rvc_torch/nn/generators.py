@@ -155,7 +155,10 @@ class SineGenerator(nn.Module):
                 deterministic: bool = False):
         rand_ini = None
         if not deterministic and self.dim > 1:
-            rand_ini = draw_uniform((1, 1, self.dim), generator, f0)
+            # one phase for the batch: a RowGenerators' shared generator
+            rand_ini = draw_uniform((1, 1, self.dim),
+                                    getattr(generator, "shared", generator),
+                                    f0)
         phases = f0_to_sine_phases(f0, upp, self.sampling_rate, self.dim,
                                    rand_ini)
         sines = torch.sin(2 * math.pi * phases) * self.sine_amp

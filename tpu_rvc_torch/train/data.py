@@ -246,6 +246,23 @@ class BucketBatcher:
         for bucket, group in self._plans(epoch_idx, self.rank, self.world):
             yield self._collate([self.ds.load(i) for i in group], bucket)
 
+    def epoch_local_slice(self, epoch_idx: int, rank: int,
+                          world: int) -> Iterator[Dict[str, np.ndarray]]:
+        """One process's part of a data-parallel epoch
+        (tpu_rvc/train/data.py:246-263): every process derives the same
+        global plan (same seed, same dataset on every host, as the
+        reference's DistributedBucketSampler requires) and yields its rows
+        `rank::world` of each global batch, so all step through the same
+        number of batches of the same shapes, and each loads 1/world of
+        the rows."""
+        if self.batch_size % world != 0:
+            raise ValueError(
+                f"global batch_size {self.batch_size} not divisible by "
+                f"process count {world}")
+        for bucket, group in self._plans(epoch_idx, 0, 1):
+            yield self._collate(
+                [self.ds.load(i) for i in group[rank::world]], bucket)
+
     def _collate(self, items: List[Dict], bucket: int) -> Dict[str, np.ndarray]:
         B = len(items)
         d = self.ds.hp.data

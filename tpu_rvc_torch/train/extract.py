@@ -11,7 +11,10 @@ f0 goes through the port's `f0/gen.py` (any of its six methods; harvest
 median-filters with radius 3, as the reference does); the features through
 the port's HuBERT on `device` (the card unless the caller asks for the
 CPU), each utterance zero-padded to whole seconds with its padding mask,
-as the JAX pass buckets its compiles (`:82-97`).
+as the JAX pass buckets its compiles (`:82-97`).  `part`/`n_parts` take
+every n_parts-th file from the part-th of the sorted names, so n_parts
+processes share one experiment's files (the reference's per-GPU
+processes, extract_feature_print.py:122).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from tpu_rvc_torch.f0.gen import Generator as F0Generator
 
 
 def extract_f0(exp_dir: str, f0_method: str = "rmvpe",
-               rmvpe_root: str = "assets/rmvpe", device=None) -> List[str]:
+               rmvpe_root: str = "assets/rmvpe", device=None,
+               part: int = 0, n_parts: int = 1) -> List[str]:
     """Coarse and continuous f0 for every 16 kHz wav of the experiment;
     returns the log lines of the files that failed."""
     inp = os.path.join(exp_dir, "1_16k_wavs")
@@ -39,7 +43,7 @@ def extract_f0(exp_dir: str, f0_method: str = "rmvpe",
     os.makedirs(out_cont, exist_ok=True)
     gen = F0Generator(rmvpe_root, window=160, sr=16000, device=device)
     logs = []
-    for name in sorted(os.listdir(inp)):
+    for name in sorted(os.listdir(inp))[part::n_parts]:
         try:
             c_path = os.path.join(out_coarse, name + ".npy")
             f_path = os.path.join(out_cont, name + ".npy")
@@ -70,7 +74,8 @@ def load_hubert(path: str, version: str, device=None):
 
 def extract_features(exp_dir: str, version: str = "v2",
                      hubert_path: str = "assets/hubert/hubert_base.pt",
-                     hubert=None, device=None) -> List[str]:
+                     hubert=None, device=None, part: int = 0,
+                     n_parts: int = 1) -> List[str]:
     """HuBERT features for every 16 kHz wav (reference
     extract_feature_print.py:80-160); returns the failures' log lines."""
     dev = resolve_device(device)
@@ -91,7 +96,7 @@ def extract_features(exp_dir: str, version: str = "v2",
         return feats[:(L - 400) // 320 + 1].float().cpu().numpy()
 
     logs = []
-    for name in sorted(os.listdir(inp)):
+    for name in sorted(os.listdir(inp))[part::n_parts]:
         try:
             out_path = os.path.join(out_dir, name.replace("wav", "npy"))
             if os.path.exists(out_path):

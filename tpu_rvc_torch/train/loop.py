@@ -1,5 +1,5 @@
-"""Training orchestration on one device (port of tpu_rvc/train/loop.py:
-101-272; reference infer/modules/train/train.py:132-737).
+"""Training orchestration (port of tpu_rvc/train/loop.py:101-273;
+reference infer/modules/train/train.py:132-737).
 
 `run_training` drives: filelist -> dataset -> bucketed batches -> the GAN
 step (`train/step.py`) -> per-epoch checkpoints -> the final small model.
@@ -15,7 +15,13 @@ Checkpoints:
                     kept, enc_q included), as the reference trainer writes
                     it (infer/lib/train/utils.py:89-107);
   {name}.pth        the small model (`ckpt/small_model.py`).
-DDP over several cards is not ported yet (ROADMAP.md).
+Several processes, one a card (`parallel/multihost.py` `initialize`
+first): every process runs the same call; the global batch is rounded to
+a multiple of the process count, each process feeds its rows of every
+global batch (`BucketBatcher.epoch_local_slice`) to a step that averages
+over the group (`train/step.py`), and only the primary process writes the
+filelist, the checkpoints, the small model and tensorboard.  Every rank's
+weights are the same, so rank 0 writes what a one-process run writes.
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_rvc_torch.core.config import HParams
 from tpu_rvc_torch.core.device import resolve_device
+from tpu_rvc_torch.parallel import multihost as mh
 from .data import BucketBatcher, RVCDataset, write_filelist
-from .step import TrainState, batch_to_device, create_train_state
+from .step import TrainState, create_train_state
 
 logger = logging.getLogger(__name__)
 SR_TAGS = {32000: "32k", 40000: "40k", 48000: "48k"}
@@ -148,25 +156,32 @@ def run_training(exp_dir: str, hp: HParams, *, total_epochs: int = 10,
                  cache_in_hbm: bool = False, log_fn=None,
                  tensorboard: bool = True, device=None) -> Dict[str, Any]:
     """Fine-tune on a prepared experiment dir on `device` (default the
-    card); returns the last step's scalar metrics.
+    card: this process's card once the job is joined); returns the last
+    step's scalar metrics, the global batch's.
 
-    cache_in_hbm: after the first epoch every batch stays on the device
-    and only the batch order reshuffles per epoch (reference
-    if_cache_data_in_gpu, train.py:425-501, which also freezes batch
-    composition once cached)."""
+    cache_in_hbm: after the first epoch every batch (this process's rows)
+    stays on the device and only the batch order reshuffles per epoch
+    (reference if_cache_data_in_gpu, train.py:425-501, which also freezes
+    batch composition once cached)."""
     device = resolve_device(device)
     log = log_fn or (lambda s: logger.info(s))
-    tb = _summary_writer(os.path.join(exp_dir, "tb")) if tensorboard else None
+    world, rank = mh.process_count(), mh.process_index()
+    primary = mh.is_primary()
+    tb = (_summary_writer(os.path.join(exp_dir, "tb"))
+          if tensorboard and primary else None)
     sr_tag = SR_TAGS[hp.data.sampling_rate]
     filelist = os.path.join(exp_dir, "filelist.txt")
-    if not os.path.exists(filelist):
+    if primary and not os.path.exists(filelist):
         write_filelist(exp_dir, hp.version, if_f0, 0, sr_tag)
+    if world > 1:
+        dist.barrier()      # the others read the filelist rank 0 wrote
     ds = RVCDataset(filelist, hp, if_f0=if_f0)
-    bs = hp.train.batch_size
+    bs = max(hp.train.batch_size // world * world, world)
     batcher = BucketBatcher(ds, bs, seed=hp.train.seed)
     steps_per_epoch = max(len(ds) // bs, 1)
     state = create_train_state(hp, steps_per_epoch=steps_per_epoch,
-                               use_f0=bool(if_f0), device=device)
+                               use_f0=bool(if_f0), device=device,
+                               group=mh.data_group())
 
     ckpt = latest_checkpoint(exp_dir)
     start_epoch = 0
@@ -175,6 +190,11 @@ def run_training(exp_dir: str, hp: HParams, *, total_epochs: int = 10,
         log(f"resumed from {ckpt} at epoch {start_epoch}")
     else:
         warm_start(state, pretrain_g, pretrain_d, log)
+    if world > 1:
+        # only rank 0 writes checkpoints: every process must resume from
+        # the same one (the experiment dir on shared storage)
+        start_epoch = mh.assert_same_across_hosts(start_epoch,
+                                                  "resume start_epoch")
 
     metrics: Dict[str, torch.Tensor] = {}
     cache = [] if cache_in_hbm else None
@@ -186,11 +206,13 @@ def run_training(exp_dir: str, hp: HParams, *, total_epochs: int = 10,
             order = np.random.default_rng(
                 hp.train.seed + epoch).permutation(len(cache))
             batches = (cache[i] for i in order)
+        elif world > 1:
+            batches = batcher.epoch_local_slice(epoch, rank, world)
         else:
             batches = batcher.epoch(epoch)
         for batch in batches:
             if cache is not None and not cache_ready:
-                batch = batch_to_device(batch, state.device)
+                batch = mh.global_batch_from_local(batch, state.device)
                 cache.append(batch)
             metrics = state.train_step(batch)
             n_batches += 1
@@ -210,7 +232,8 @@ def run_training(exp_dir: str, hp: HParams, *, total_epochs: int = 10,
         log(f"epoch {epoch + 1}/{total_epochs}: {n_batches} steps in "
             f"{time.time() - t0:.1f}s, "
             + ", ".join(f"{k}={float(v):.3f}" for k, v in metrics.items()))
-        if (epoch + 1) % save_every_epoch == 0 or epoch + 1 == total_epochs:
+        if primary and ((epoch + 1) % save_every_epoch == 0
+                        or epoch + 1 == total_epochs):
             save_native_checkpoint(
                 os.path.join(exp_dir, f"state_{epoch + 1}.pt"), state,
                 epoch + 1)
@@ -218,6 +241,8 @@ def run_training(exp_dir: str, hp: HParams, *, total_epochs: int = 10,
                 os.path.join(exp_dir, f"G_{epoch + 1}.pth"), state.net_g,
                 epoch + 1, state.lr((epoch + 1) * steps_per_epoch))
 
+    if not primary:
+        return {k: float(v) for k, v in metrics.items()}
     from tpu_rvc_torch.ckpt.small_model import save_small_model
     out = save_small_model(state.net_g.state_dict(), sr_tag, int(if_f0),
                            name, total_epochs, hp.version, hp,

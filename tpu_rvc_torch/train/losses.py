@@ -45,12 +45,21 @@ def generator_loss(disc_outputs: Sequence[torch.Tensor]
     return loss, gen_losses
 
 
-def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
-            logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
-    """The prior/posterior KL, channel-last (B, T, C), mask (B, T, 1)."""
+def kl_parts(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
+             logs_p: torch.Tensor, z_mask: torch.Tensor):
+    """`kl_loss`'s numerator, the masked sum of the KL, and its
+    denominator, the mask's sum: a data-parallel step divides the sum of
+    every rank's numerator by the sum of every rank's denominator."""
     z_p, logs_q = z_p.float(), logs_q.float()
     m_p, logs_p = m_p.float(), logs_p.float()
     z_mask = z_mask.float()
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask), torch.sum(z_mask)
+
+
+def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
+            logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
+    """The prior/posterior KL, channel-last (B, T, C), mask (B, T, 1)."""
+    num, den = kl_parts(z_p, logs_q, m_p, logs_p, z_mask)
+    return num / den
