@@ -198,6 +198,27 @@ Phases, one line of output each (any failure exits non-zero):
      kernels against their batched plain twins at D1's and D2's shapes
      (K1 also over a one-frame filler row, K2 and K3 at every decoder
      level); each D phase prints its seconds;
+ W1. the web app: `apps/web.py` `Api(device="cuda")` behind its
+     JSON-over-HTTP server on 127.0.0.1 (an ephemeral port, a thread):
+     POST /api/infer_convert of the 10 s voice with pm and the index
+     saved as a file, 1 warm-up + 2 timed (within 1 LSB of the same
+     `VC.vc_single` called here, 6 K1 and 72 K2 launches, the request's
+     wall beside the direct call's), the same through `stream_endpoint`'s
+     worker thread, change_voice, ckpt_show, hash_similarity and a 404;
+     uvr_convert twice on U1's HP5-style net and the 3 s mix (one load, a
+     DeviceSeparator, no launch); stream_endpoint("train_index") on T1's
+     features;
+ W2. the realtime app: `apps/gui.py` `main` with --input/--output, 48 kHz,
+     0.25 s blocks, pm, 8 blocks, its other settings the persisted
+     defaults (the settings file in the temporary directory), engines
+     deterministic; its file bit for bit against the session
+     `build_session` gives fed here block by block, and a second
+     `run_file` likewise; 6 K1 and 72 K2 launches a block; block p50,
+     p90 and the first block's ms;
+ W3. MCD on the card: the port's `utils/mcd.py` on the card against the
+     CPU (within 1e-3 dB) over phase 5's float outputs before the RMS mix
+     and int16, and the card-vs-CPU MCD itself under 0.1 dB with a -50
+     dBFS energy floor, pm and rmvpe;
 then one JSON line of kernels, the card line again, and the result line.
 Each phase line carries `t_s`, the seconds since the script started.
 """
@@ -647,7 +668,9 @@ def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
                 estimators=None):
     """The same deterministic conversion on the card and on the CPU, for
     each f0 method; `estimators(device)` gives estimators to put in the
-    pipeline's generator (CREPE has no default file)."""
+    pipeline's generator (CREPE has no default file).  Returns, by
+    method, the (card, CPU) float outputs before the RMS mix and int16,
+    trimmed as the int16 output is."""
     from tpu_rvc_torch.audio.io import load_audio
     from tpu_rvc_torch.models.hubert import hubert_for_version
     from tpu_rvc_torch.models.loader import load_synthesizer
@@ -658,6 +681,7 @@ def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
     write_voice(wav, 1.0, seed=5)
     audio = load_audio(wav, 16000)
     outs = {m: [] for m in methods}
+    floats = {m: [] for m in methods}
     for dev in ("cuda", "cpu"):
         synth, _ = load_synthesizer(model, dev)
         pipe = Pipeline(48000, hubert=hubert_for_version("v2", dev),
@@ -665,15 +689,28 @@ def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
                         noise_scale=0.0, deterministic=True, device=dev)
         if estimators is not None:
             pipe.f0_gen._estimators.update(estimators(dev))
+        rows = []
+        convert_rows = pipe._convert_rows
+
+        def spy(*args, **kw):   # the synthesizer's float rows
+            out = convert_rows(*args, **kw)
+            rows.append(out[0].double().cpu().numpy())
+            return out
+
+        pipe._convert_rows = spy
         for method in outs:
             outs[method].append(pipe.pipeline(
                 0, audio, [0.0, 0.0, 0.0], 0, method, None, 0.0, 1, 3, 0,
                 0.25, 0.33).astype(np.float64))
+            n = outs[method][-1].shape[0]
+            floats[method].append(
+                rows[-1][pipe.t_pad_tgt: pipe.t_pad_tgt + n])
     for method, (gpu, cpu) in outs.items():
         rel = rel_l2(gpu, cpu, f"offline {method}")
         say(phase, f0_method=method, input_s=1.0,
             samples=int(gpu.shape[0]), rel_l2_err=rel,
             max_abs_int16=float(np.abs(gpu - cpu).max()))
+    return floats
 
 
 def rel_l2(gpu, cpu, what, limit=1e-3):
@@ -1801,7 +1838,8 @@ def data_parallel_training(tmp, exp):
         # only its 2 lr a step: two one-process runs already differ in
         # 5-9% of the elements by more than 1e-6 there (rounding that
         # differs from run to run, amplified by the GAN and by Adam's
-        # normalised steps)
+        # normalised steps; tools/determinism_probe.py: bit-equal only
+        # under torch.use_deterministic_algorithms, at 1.7x the step)
         if not (gap[1]["max_abs"] <= 2 * lr * 1.01
                 and gap[1]["beyond_1e6"] < 1e-3
                 and gap[5]["max_abs"] <= 10 * lr * 1.01):
@@ -3217,6 +3255,319 @@ def across_devices(tmp):
     return extra
 
 
+# ---------------------------------------------------------------------------
+# W1-W3: the web app, the realtime app and MCD on the card
+# ---------------------------------------------------------------------------
+
+MCD_CARD_VS_CPU_DB = 1e-3   # the port's MCD on the card against the CPU
+MCD_LIMIT_DB = 0.1          # card against CPU conversion, float output
+MCD_FLOOR = 10 ** (-50 / 20)  # -50 dBFS: benchmarks/mcd_oracle.py's gate
+GUI_BLOCKS = 8
+
+
+def post(base, name, payload):
+    """POST /api/<name> -> (status, decoded body or None, wall ms)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"{base}/api/{name}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        code, body = e.code, (json.loads(raw) if raw else None)
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def web_app(tmp, exp):
+    """W1: `Api(device="cuda")` behind the app's JSON-over-HTTP server
+    (`http_server`, what `serve_http` serves) on 127.0.0.1, an ephemeral
+    port, in a thread: infer_convert with pm and the index (within 1 LSB
+    of `VC.vc_single` here, 6 K1 and 72 K2 launches), the same through
+    `stream_endpoint`'s worker thread, change_voice, ckpt_show,
+    hash_similarity, a 404; uvr_convert twice on U1's HP5-style net (one
+    load, no launch); stream_endpoint("train_index") on T1's features."""
+    import shutil
+    from tpu_rvc_torch.apps import web
+    from tpu_rvc_torch.ckpt.hash import wave_hash
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline import uvr5
+    from tpu_rvc_torch.retrieval.index import FeatureIndex
+
+    t_start = time.perf_counter()
+    root = os.path.join(tmp, "web")
+    for d in ("weights", "logs", "uvr5", "opt"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    shutil.copy(os.path.join(tmp, "v2_48k.pth"),
+                os.path.join(root, "weights", "v2_48k.pth"))
+    index = random_index()
+    index_path = os.path.join(root, "logs", "added_web.tpuidx.npz")
+    index.save(index_path)
+    wav = os.path.join(tmp, "voice_10s.wav")
+    api = web.Api(weight_root=os.path.join(root, "weights"),
+                  index_root=os.path.join(root, "logs"),
+                  hubert_path="random", rmvpe_root=tmp,
+                  uvr5_root=os.path.join(root, "uvr5"), device="cuda")
+    srv = web.http_server(api, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        kw = dict(sid=0, input_audio_path=wav, f0_method="pm",
+                  file_index=index_path, index_rate=0.75,
+                  model_name="v2_48k.pth")
+        out = os.path.join(root, "opt", "infer.wav")
+        walls = []
+        for i in range(3):   # a warm-up (the model loads), then 2 timed
+            reset_launch_counts()
+            code, body, ms = post(base, "infer_convert",
+                                  dict(kw, output_path=out))
+            if code != 200:
+                raise AssertionError(f"infer_convert over HTTP: {code} "
+                                     f"{body}")
+            walls.append(ms)
+            counts = dict(launch_counts)
+        want = {"banded_rel_attention": 6, "fused_stage": 72,
+                "fused_resblock": 0}
+        if counts != want:
+            raise AssertionError(f"launches of an HTTP infer_convert "
+                                 f"{counts}, expected {want}")
+        got, sr = read_stereo_wav(out)
+        got = got[:, 0]
+        direct_walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _, (dsr, direct) = api._vc.vc_single(0, wav, 0, "pm", index, 0.75,
+                                                 3, 0, 1.0, 0.33)
+            direct_walls.append((time.perf_counter() - t0) * 1e3)
+        check_output(direct, expected_len(160000, api._vc.x_pad, 480, 48000),
+                     "W1 direct vc_single")
+        lsb = int(np.abs(got.astype(np.int64) - direct).max()) \
+            if got.shape == direct.shape else None
+        if sr != dsr or lsb is None or lsb > 1:
+            raise AssertionError(f"HTTP infer_convert against vc_single: "
+                                 f"sr {sr}/{dsr}, {got.shape} vs "
+                                 f"{direct.shape}, {lsb} LSB")
+        # what a request does beside the conversion: the JAX app's Api
+        # reloads the voice model and the index file on every request
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api._get_vc("v2_48k.pth")
+        torch.cuda.synchronize()
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        FeatureIndex.load(index_path)
+        index_load_ms = (time.perf_counter() - t0) * 1e3
+        streamed_out = os.path.join(root, "opt", "streamed.wav")
+        reset_launch_counts()
+        lines = list(api.stream_endpoint("infer_convert", poll=0.05,
+                                         output_path=streamed_out, **kw))
+        stream_counts = dict(launch_counts)
+        streamed = read_stereo_wav(streamed_out)[0][:, 0]
+        stream_lsb = int(np.abs(streamed.astype(np.int64) - direct).max())
+        if json.loads(lines[-1])["output"] != streamed_out or \
+                stream_lsb > 1 or stream_counts != want:
+            raise AssertionError(f"stream_endpoint infer_convert: "
+                                 f"{lines[-1][:200]}, {stream_lsb} LSB, "
+                                 f"{stream_counts}")
+        code, voice_meta, _ = post(base, "change_voice",
+                                   {"model_name": "v2_48k.pth"})
+        if code != 200 or voice_meta["result"] != {
+                "n_spk": api._vc.n_spk, "if_f0": 1, "sr": 48000,
+                "info": "random weights", "version": "v2"}:
+            raise AssertionError(f"change_voice over HTTP: {voice_meta}")
+        code, shown, _ = post(base, "ckpt_show", {"path": os.path.join(
+            root, "weights", "v2_48k.pth")})
+        if code != 200 or set(shown["result"]) != {
+                "config", "f0", "version", "sr", "info"}:
+            raise AssertionError(f"ckpt_show over HTTP: {code} {shown}")
+        h = wave_hash(np.random.default_rng(5).standard_normal(48000))
+        code, sim, _ = post(base, "hash_similarity", {"id_a": h, "id_b": h})
+        if code != 200 or not sim["result"]["similarity"] >= 0.999999:
+            raise AssertionError(f"hash_similarity over HTTP: {sim}")
+        code, missing, _ = post(base, "no_such_endpoint", {})
+        if code != 404:
+            raise AssertionError(f"an unknown endpoint gave {code}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    # uvr_convert: the separator is loaded once and kept
+    hp5 = os.path.join(tmp, "HP5_random.pth")
+    song = write_song(tmp, SHORT_S)
+    loads = []
+    inner = uvr5.load_separator
+
+    def counted(*a, **k):
+        loads.append(a[0])
+        return inner(*a, **k)
+
+    uvr5.load_separator = counted
+    try:
+        reset_launch_counts()
+        uvr_walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = api.uvr_convert(hp5, song,
+                                ins_root=os.path.join(root, "ins"),
+                                vocal_root=os.path.join(root, "voc"))
+            uvr_walls.append((time.perf_counter() - t0) * 1e3)
+        uvr_counts = dict(launch_counts)
+    finally:
+        uvr5.load_separator = inner
+    sep = api._uvr[(hp5, 10)]
+    if loads != [hp5] or not isinstance(sep, uvr5.DeviceSeparator) or \
+            any(uvr_counts.values()):
+        raise AssertionError(f"uvr_convert: loads {loads}, separator "
+                             f"{type(sep).__name__}, launches {uvr_counts}")
+    ins, _ = read_stereo_wav(r["instrument"])
+    voc, _ = read_stereo_wav(r["vocal"])
+    check_stems(ins, voc, SHORT_S, "W1 uvr_convert")
+    lines = list(api.stream_endpoint("train_index", poll=0.05, exp_dir=exp,
+                                     version="v2", name="web"))
+    rows = json.loads(lines[-1])["rows"]
+    if not os.path.exists(os.path.join(exp, "added_web.tpuidx.npz")):
+        raise AssertionError(f"train_index wrote no index: {lines[-1]}")
+    say("web_app", model="v2/48k random weights", input_s=10.0,
+        index_rows=10000, http_infer_ms=walls[1:],
+        http_infer_first_ms=walls[0], direct_vc_single_ms=direct_walls,
+        model_reload_ms=reload_ms, index_load_ms=index_load_ms,
+        http_vs_direct_max_lsb=lsb, stream_endpoint_max_lsb=stream_lsb,
+        launches=counts, stream_endpoint_launches=stream_counts,
+        uvr_convert_ms=uvr_walls, uvr_loads=len(loads),
+        uvr_launches=uvr_counts, uvr_input_s=SHORT_S,
+        train_index_rows=rows, seconds=time.perf_counter() - t_start)
+    return counts
+
+
+class _DeterministicEngine:
+    """Makes `RealtimeVC` deterministic (no prior or source noise) while
+    in effect, for the app's session and the direct one alike."""
+
+    def __enter__(self):
+        from tpu_rvc_torch.pipeline import rt
+
+        self.rt, self.inner = rt, rt.RealtimeVC
+
+        class Engine(self.inner):
+            def __init__(self, **kw):
+                super().__init__(noise_scale=0.0, deterministic=True, **kw)
+
+        rt.RealtimeVC = Engine
+
+    def __exit__(self, *exc):
+        self.rt.RealtimeVC = self.inner
+
+
+def gui_file(tmp):
+    """W2: `python -m tpu_rvc_torch.apps.gui --input ... --output ...` as
+    `main(argv)` here: 48 kHz, 0.25 s blocks, pm, GUI_BLOCKS blocks, the
+    app's defaults otherwise, the settings file in `tmp`; its file against
+    the same session fed here block by block (bit for bit, deterministic
+    engine); 6 K1 and 72 K2 launches a block; block p50 and p90."""
+    import argparse
+    import io
+    from tpu_rvc_torch.apps import gui
+    from tpu_rvc_torch.audio.io import load_wav, save_wav
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t_start = time.perf_counter()
+    model = os.path.join(tmp, "v2_48k.pth")
+    wav = os.path.join(tmp, "gui_in.wav")
+    save_wav(wav, voice(GUI_BLOCKS * 0.25 + 0.1, 21, sr=48000), 48000)
+    out = os.path.join(tmp, "gui_out.wav")
+    argv = ["--model", model, "--hubert", "random", "--rmvpe-root", tmp,
+            "--input", wav, "--output", out, "--samplerate", "48000",
+            "--block-time", "0.25", "--f0-method", "pm"]
+    printed = io.StringIO()
+    saved_env = os.environ.get("TPU_RVC_GUI_CONFIG")
+    os.environ["TPU_RVC_GUI_CONFIG"] = os.path.join(tmp, "gui.json")
+    try:
+        with _DeterministicEngine():
+            reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                gui.main(argv)
+            counts = dict(launch_counts)
+            with open(os.environ["TPU_RVC_GUI_CONFIG"]) as f:
+                cfg = json.load(f)
+            args = argparse.Namespace(
+                model=model, index="", hubert="random", rmvpe_root=tmp,
+                samplerate=48000, block_time=0.25,
+                crossfade_time=cfg["crossfade_length"],
+                extra_time=cfg["extra_time"], f0_method="pm",
+                f0_up_key=cfg["pitch"], formant=cfg["formant"],
+                index_rate=cfg["index_rate"],
+                rms_mix_rate=cfg["rms_mix_rate"], protect=0.33,
+                use_pv=cfg["use_pv"], device="cuda")
+            sess = gui.build_session(args)
+            audio = load_wav(wav)[0]
+            bf = sess.block_frame
+            direct = [sess.feed(audio[i * bf:(i + 1) * bf])
+                      for i in range(GUI_BLOCKS)]
+            # run_file again for its block times, unrounded
+            with contextlib.redirect_stdout(printed):
+                lat = gui.run_file(argparse.Namespace(
+                    **vars(args), input=wav, output=out + ".2.wav"))
+    finally:
+        if saved_env is None:
+            os.environ.pop("TPU_RVC_GUI_CONFIG")
+        else:
+            os.environ["TPU_RVC_GUI_CONFIG"] = saved_env
+    check_blocks(direct, bf, "W2 gui run_file")
+    written = (np.clip(np.concatenate(direct), -1.0, 1.0)
+               * 32767.0).astype(np.int16)
+    for path in (out, out + ".2.wav"):
+        got, sr = read_stereo_wav(path)
+        got = got[:, 0]
+        if sr != 48000 or not np.array_equal(got, written):
+            raise AssertionError(
+                f"gui run_file against its session: sr {sr}, {got.shape} "
+                f"vs {written.shape}, max "
+                f"{np.abs(got.astype(int) - written).max()}")
+    per_block = {k: v / GUI_BLOCKS for k, v in counts.items()}
+    want = {"banded_rel_attention": 6, "fused_stage": 72,
+            "fused_resblock": 0}
+    if per_block != want:
+        raise AssertionError(f"gui launches a block {per_block}")
+    lines = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith("block latency")]
+    lat_ms = np.asarray(lat[1:])
+    say("gui_file", model="v2/48k random weights", samplerate=48000,
+        block_s=0.25, blocks=GUI_BLOCKS, f0_method="pm",
+        fused=sess._fused is not None, rms_mix_rate=cfg["rms_mix_rate"],
+        app_line=lines[0] if lines else None,
+        block_ms_p50=float(np.percentile(lat_ms, 50)),
+        block_ms_p90=float(np.percentile(lat_ms, 90)),
+        first_block_ms=float(lat[0]), launches_per_block=per_block,
+        bit_equal_to_session=True, seconds=time.perf_counter() - t_start)
+    return {k: int(v) for k, v in per_block.items()}
+
+
+def mcd_card(floats):
+    """W3: the port's MCD on the card against on the CPU over the float
+    outputs (before int16) of phase 5's card-vs-CPU conversions, and the
+    card-vs-CPU MCD itself, with a -50 dBFS energy floor."""
+    from tpu_rvc_torch.utils.mcd import mcd
+
+    rows = {}
+    for method, (gpu, cpu) in floats.items():
+        on_card = mcd(gpu, cpu, 48000, energy_floor=MCD_FLOOR, device="cuda")
+        on_cpu = mcd(gpu, cpu, 48000, energy_floor=MCD_FLOOR, device="cpu")
+        ungated = mcd(gpu, cpu, 48000, device="cuda")
+        if not (abs(on_card - on_cpu) <= MCD_CARD_VS_CPU_DB
+                and on_card < MCD_LIMIT_DB):
+            raise AssertionError(f"MCD {method}: card {on_card} dB, CPU "
+                                 f"{on_cpu} dB")
+        rows[method] = dict(mcd_db_card=on_card, mcd_db_cpu=on_cpu,
+                            card_vs_cpu_db=abs(on_card - on_cpu),
+                            mcd_db_ungated=ungated, samples=len(gpu))
+    say("mcd_card", energy_floor=MCD_FLOOR, limit_db=MCD_LIMIT_DB, **rows)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3239,7 +3590,7 @@ def main():
         write_rmvpe(tmp, seed=9)
         main_counts = end_to_end(tmp, "pm", "end_to_end")
         rb_counts = single_resblock_path(tmp)
-        against_cpu(tmp)
+        against_cpu_floats = against_cpu(tmp)
         rmvpe_counts = end_to_end(tmp, "rmvpe", "end_to_end_rmvpe")
         if rmvpe_counts != main_counts:
             raise AssertionError(f"launches with rmvpe {rmvpe_counts}")
@@ -3271,6 +3622,9 @@ def main():
         tools_counts = checkpoint_tools(tmp, g_path)
         uvr5_counts = separation_phases(tmp)
         device_rows = across_devices(tmp)
+        web_counts = web_app(tmp, exp)
+        gui_counts = gui_file(tmp)
+        mcd_card(against_cpu_floats)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -3287,6 +3641,8 @@ def main():
         e["merged_model_launches"] = tools_counts[e["name"]]
         e["uvr5_launches"] = sum(c[e["name"]] for c in uvr5_counts)
         e.update(device_rows[e["name"]])
+        e["web_launches"] = web_counts[e["name"]]
+        e["gui_launches"] = gui_counts[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
