@@ -12,7 +12,11 @@ Phases, one line of output each (any failure exits non-zero):
      as in the port's entry points: max abs / rel error and the median ms
      of both, from CUDA events after a warm-up, beside the kernel's bound
      at the peak it uses (the tensor cores as 3xTF32) and at the fp32 FMA
-     units' peak;
+     units' peak; then the rest of the model family: K2 at every decoder
+     level of v1/32k, v1/40k (= v2/40k), v1/48k and v2/32k (the five-level
+     v1 decoders end at C = 16), K3 at v1/32k's and v1/40k's levels and
+     v1/48k's C = 16 level, both at (256, 290) and (16, 2321), whose
+     T % 4 != 0 takes the kernel's scalar staging path;
   3. end to end through the user's entry points: a random-weight v2/48k
      small model `.pth` in the reference layout, a random 10k x 768 index,
      a synthetic 10 s WAV; VC(hubert_path="random").get_vc(path) and
@@ -80,7 +84,11 @@ Phases, one line of output each (any failure exits non-zero):
      steps timed one by one on the host clock after a synchronize (median,
      p90, max, samples a second), CUDA-event spans `g_forward`, `d_step`,
      `g_step`, the host's batch time, peak memory, the device's busy share
-     and top kernels over 3 more steps (torch.profiler); the live G's
+     and top kernels over 3 more steps (torch.profiler); 8 more steps
+     under the deterministic setting (`TrainState.deterministic`, off by
+     default): their ms, split into steps on a bucket shape new to that
+     setting (cuDNN times its algorithms there) and the rest, and the
+     peak reserved memory of each setting's steps; the live G's
      `infer` (its stage cache filled before the optimizer moved its
      weights in place) against its `G_*.pth` reloaded (1e-5 of full
      scale);
@@ -102,10 +110,14 @@ Phases, one line of output each (any failure exits non-zero):
      1e-4 relative at steps 1-2, and at the unpinned steps 4-5 within 1e-3
      beyond twice what the second run moves; the ranks' parameters
      bit-identical after 1, 3 and 5 steps; after 1 every element within 2
-     lr and under 0.1% beyond 1e-6, after 5 within 2 lr a step (the
-     card's step is not reproducible: the second run's share of elements
-     beyond 1e-6 is printed beside the ranks'); ms a global
-     step and peak memory a rank; (c) the same on a (1, 2) FSDP2 mesh
+     lr and under 0.1% beyond 1e-6, after 5 within 2 lr a step; ms a
+     global step and peak memory a rank, at the default setting; the two
+     one-process runs, after the CLI's epoch and under the deterministic
+     step (`TrainState.deterministic`, off by default), under 0.1% of the
+     elements beyond 1e-6 apart after 1 and 5 steps, that step's median
+     ms against the default setting's in turns on one state (reported,
+     not bounded), the peak reserved memory of its first runs (cuDNN's
+     search included) and of each setting's warm-up; (c) the same on a (1, 2) FSDP2 mesh
      (`shard_train_state`: both ranks on all 4 rows, the parameters
      sharded), `assert_state_sharded` >= 0.5 before and after; no
      K1/K2/K3 launch in any process;
@@ -219,6 +231,22 @@ Phases, one line of output each (any failure exits non-zero):
      CPU (within 1e-3 dB) over phase 5's float outputs before the RMS mix
      and int16, and the card-vs-CPU MCD itself under 0.1 dB with a -50
      dBFS energy floor, pm and rmvpe;
+ P1. the rest of the model family offline: each of the 12 kinds {v1, v2}
+     x {32k, 40k, 48k} x {f0, no f0} at full width, random weights from a
+     seed (`write_model` with the preset's hparams), through one VC a
+     version (v1: HuBERT's layer 9 and final_proj, 256-d; v2: layer 12)
+     and a 10 s vc_single, pm (RMVPE for v1/40k), a random 10k-row index
+     of the version's width for v1/32k and v2/40k: the length at the
+     preset's hop and rate, finite int16, 6 K1 and 18 K2 a decoder level,
+     median wall of 3 after 1 warm-up, peak memory; 1 s on the card
+     against the CPU (relative L2 < 1e-3 on the float output);
+ P2. the family streaming: StreamSession at the model's own rate, 0.25 s
+     blocks, fused, with the index: v2/40k with RMVPE at 40 kHz and v1/32k
+     (five levels, C = 16) with pm at 32 kHz, 3 warm-up and 10 timed
+     blocks (p50, p90, max, blocks over 250 ms: 0, launches each block),
+     then 8 deterministic blocks on the card against the CPU (relative L2
+     < 1e-3) and the fused against the host path (1e-4 of full scale);
+     each P phase prints its seconds;
 then one JSON line of kernels, the card line again, and the result line.
 Each phase line carries `t_s`, the seconds since the script started.
 """
@@ -372,7 +400,7 @@ def stage_extra_hbm_ms(C, T, n_rb, n_d=3):
 
 
 def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1,
-                by_stream=True):
+                by_stream=True, **tags):
     """K2 (or K3 with one kernel size) at each (C, T) of `shapes`, for N
     streams at once when N > 1: then the batched launch must also equal
     the same kernel launched stream by stream, bit for bit (unless
@@ -400,7 +428,7 @@ def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1,
         ms = median_ms(lambda: fn(x, sw), iters=iters)
         plain_ms = median_ms(lambda: rs.stage_plain(x, sw), iters=iters)
         b_ms, b_by, b_fma = stage_cost(C, T, ks, N)
-        say(phase, name=name, C=C, T=T, kernel_sizes=list(ks),
+        say(phase, name=name, **tags, C=C, T=T, kernel_sizes=list(ks),
             max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             bound_fp32_fma_ms=b_fma, launches_per_call=6 * len(ks),
@@ -475,15 +503,79 @@ def check_kernels():
                      N=BATCH_N)
     b3 = check_stage(rs, g, "fused_resblock", [(64, 7200)], (7,),
                      "kernel_batch", N=BATCH_N)
+    family = check_family_kernels(rs, g)
     return [
         kernel_entry("banded_rel_attention",
                      "tpu_rvc/ops/pallas/rel_attention.py:75", k1, s1, b1),
         kernel_entry("fused_stage", "tpu_rvc/ops/pallas/resblock.py:163",
                      k2, s2, b2, per_stage_ms=[r[1] for r in k2],
                      stream_per_stage_ms=[r[1] for r in s2],
-                     batch_per_stage_ms=[r[1] for r in b2]),
+                     batch_per_stage_ms=[r[1] for r in b2],
+                     **family["fused_stage"]),
         kernel_entry("fused_resblock", "tpu_rvc/ops/pallas/resblock.py:237",
-                     k3, s3, b3)]
+                     k3, s3, b3, **family["fused_resblock"])]
+
+
+def preset_levels(version, sr, frames=1598):
+    """The decoder levels (C, T) of a preset's model for a bucket of
+    `frames` frames (16 s: 1598): C halves and T grows by the level's
+    upsample rate, level by level."""
+    from tpu_rvc_torch.core.config import hparams_for
+
+    m = hparams_for(version, sr).model
+    levels, T = [], frames
+    for i, u in enumerate(m.upsample_rates):
+        T *= u
+        levels.append((m.upsample_initial_channel >> (i + 1), T))
+    return levels
+
+
+# the decoders other than v2/48k's (v2/40k's is v1/40k's); v1/32k and v1/48k
+# have a fifth level at C = 16, the build no other phase launches
+FAMILY_DECODERS = [("v1", 32000), ("v1", 40000), ("v1", 48000),
+                   ("v2", 32000)]
+# T % 4 != 0 takes the kernel's scalar staging and epilogue paths: a
+# streaming block's first level at an odd frame count, and a C = 16 level
+UNALIGNED = [(256, 290), (16, 2321)]
+
+
+def check_family_kernels(rs, g):
+    """Phase 2's rows for the rest of the model family: K2 at every
+    decoder level of each of FAMILY_DECODERS (16 s bucket), K3 at v1/32k's
+    and v1/40k's levels and v1/48k's C = 16 level, both at the UNALIGNED
+    shapes -> per kernel, the extra keys of the `kernels` line."""
+    ks = (3, 7, 11)
+    total = lambda rows, i: sum(r[i] for r in rows)  # noqa: E731
+
+    def summary(rows, shapes):
+        return {"levels": [list(s) for s in shapes],
+                "ms": total(rows, 1), "plain_ms": total(rows, 2),
+                "bound_ms": total(rows, 3), "bound_by": rows[0][4],
+                "per_level_ms": [r[1] for r in rows],
+                "per_level_bound_ms": [r[3] for r in rows],
+                "max_abs_err": max(r[0] for r in rows)}
+
+    out = {}
+    k3_shapes = {"v1/32k": preset_levels("v1", 32000),
+                 "v1/40k": preset_levels("v1", 40000),
+                 "v1/48k C=16": preset_levels("v1", 48000)[-1:]}
+    for name, kernel_sizes, presets in (
+            ("fused_stage", ks, {f"{v}/{sr // 1000}k": preset_levels(v, sr)
+                                 for v, sr in FAMILY_DECODERS}),
+            ("fused_resblock", (7,), k3_shapes)):
+        fam = {}
+        for key, shapes in presets.items():
+            rows = check_stage(rs, g, name, shapes, kernel_sizes,
+                               "kernel_family", preset=key)
+            fam[key] = summary(rows, shapes)
+        rows = check_stage(rs, g, name, UNALIGNED, kernel_sizes,
+                           "kernel_unaligned")
+        out[name] = {"family": fam,
+                     "unaligned": [dict(C=C, T=T, max_abs_err=r[0], ms=r[1],
+                                        plain_ms=r[2], bound_ms=r[3],
+                                        bound_by=r[4])
+                                   for (C, T), r in zip(UNALIGNED, rows)]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +583,8 @@ def check_kernels():
 # ---------------------------------------------------------------------------
 
 
-def write_model(path, hp, seed, resblock_kernel_sizes=None, ups_gain=5.0):
+def write_model(path, hp, seed, resblock_kernel_sizes=None, ups_gain=5.0,
+                use_f0=True):
     """A random-weight small model `.pth` in the reference layout (fp16
     weights, as RVC stores them).  `ups_gain` scales the upsamplers'
     weights from their initialisation's std of 0.01 towards a trained
@@ -509,7 +602,7 @@ def write_model(path, hp, seed, resblock_kernel_sizes=None, ups_gain=5.0):
             m, resblock_kernel_sizes=tuple(resblock_kernel_sizes),
             resblock_dilation_sizes=((1, 3, 5),) * len(resblock_kernel_sizes))
         hp = dataclasses.replace(hp, model=m)
-    net = make_synthesizer(hp, device="cpu", seed=seed)
+    net = make_synthesizer(hp, use_f0=use_f0, device="cpu", seed=seed)
     with torch.no_grad():
         for up in net.dec.ups:
             up.weight.mul_(ups_gain)
@@ -522,8 +615,9 @@ def write_model(path, hp, seed, resblock_kernel_sizes=None, ups_gain=5.0):
               list(m.upsample_kernel_sizes), m.spk_embed_dim, m.gin_channels,
               hp.data.sampling_rate]
     torch.save({"weight": {k: v.half() for k, v in net.state_dict().items()},
-                "config": config, "f0": 1, "version": hp.version,
-                "sr": "48k", "info": "random weights"}, path)
+                "config": config, "f0": int(use_f0), "version": hp.version,
+                "sr": f"{hp.data.sampling_rate // 1000}k",
+                "info": "random weights"}, path)
 
 
 def voice(seconds, seed, sr=16000):
@@ -563,6 +657,24 @@ def expected_len(n16, x_pad, hop, tgt_sr):
     L = _bucket(L_true)
     frames = min(L_true // WINDOW, min(L // WINDOW, _feat_frames(L)))
     return frames * hop - 2 * int(tgt_sr * x_pad)
+
+
+def want_launches(hp, calls=1, n_rb=None):
+    """K1 and K2 (or K3 on a one-resblock model) launches of `calls`
+    device calls of `Synthesizer.infer`: 6 K1 and 18 K2 a decoder level
+    each (72 at four levels, 90 at five)."""
+    n_rb = len(hp.model.resblock_kernel_sizes) if n_rb is None else n_rb
+    stage = 6 * n_rb * len(hp.model.upsample_rates) * calls
+    return {"banded_rel_attention": hp.model.n_layers * calls,
+            "fused_stage": stage if n_rb > 1 else 0,
+            "fused_resblock": stage if n_rb == 1 else 0}
+
+
+def v2_48k_launches():
+    """The launches of one call of the v2/48k models of phases 3-W3."""
+    from tpu_rvc_torch.core.config import hparams_for
+
+    return want_launches(hparams_for("v2", 48000))
 
 
 def check_output(audio, n_expected, what):
@@ -628,10 +740,10 @@ def end_to_end(tmp, f0_method, phase):
     return counts
 
 
-def random_index():
+def random_index(dim=768):
     from tpu_rvc_torch.retrieval.index import FeatureIndex
 
-    vecs = np.random.default_rng(2).standard_normal((10000, 768)).astype(
+    vecs = np.random.default_rng(2).standard_normal((10000, dim)).astype(
         np.float32)
     return FeatureIndex(vecs, (vecs * vecs).sum(1))
 
@@ -731,14 +843,14 @@ STREAM = dict(samplerate=48000, block_time=0.25, crossfade_time=0.05,
               extra_time=2.5)
 
 
-def stream_engine(model, tmp, dev, index=None, **kw):
+def stream_engine(model, tmp, dev, index=None, version="v2", **kw):
     from tpu_rvc_torch.models.hubert import hubert_for_version
     from tpu_rvc_torch.models.loader import load_synthesizer
     from tpu_rvc_torch.pipeline.rt import RealtimeVC
 
     synth, _ = load_synthesizer(model, dev)
-    return RealtimeVC(hubert=hubert_for_version("v2", dev), synth=synth,
-                      version="v2", index=index,
+    return RealtimeVC(hubert=hubert_for_version(version, dev), synth=synth,
+                      version=version, index=index,
                       index_rate=0.75 if index is not None else 0.0,
                       rmvpe_root=tmp, device=dev, **kw)
 
@@ -896,7 +1008,7 @@ def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4, f0method="rmvpe",
     index = random_index()
     n_all = n_warm + n_timed + n_profiled
     audio = voice(n_all * 0.25, seed=6, sr=48000)
-    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    want = v2_48k_launches()
     for fused in paths:
         sess = StreamSession(stream_engine(model, tmp, "cuda", index),
                              f0method=f0method, fused=fused, **STREAM)
@@ -1072,7 +1184,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
     engine = stream_engine(model, tmp, "cuda", random_index())
     n_all = n_warm + n_timed + n_profiled
     audios = client_voices(n_slots, n_all * 0.25, 20)
-    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    want = v2_48k_launches()
     streams = {}
     for pipelined in modes:
         sched = SlotScheduler(engine, n_slots, f0method=f0method,
@@ -1553,7 +1665,8 @@ def infer_args(T=200, seed=12):
             np.float32)).to(dev))
 
 
-def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
+def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3,
+                     n_det=8):
     """T2: v2/48k at full width, batch 4, segment 17280, bf16 as the preset
     says: 3 epochs through `run_training` (a checkpoint each), then a
     resumed run to a 4th; then steps timed one by one on the state of
@@ -1625,6 +1738,7 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
         batch = next(it)
         t1 = time.perf_counter()
         if i == n_warm:
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         timing.enable()
         m = state.train_step(batch)
@@ -1636,6 +1750,7 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
             host_ms.append((t1 - t0) * 1e3)
             walls.append((t2 - t1) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     three = [next(it) for _ in range(n_profiled)]
     busy, top = device_busy_ms(lambda: [state.train_step(b) for b in three])
     train_counts = {k: run_counts[k] + v for k, v in launch_counts.items()}
@@ -1643,6 +1758,7 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
     if not all(math.isfinite(float(v)) for k, v in m.items()
                if v.dim() == 0):
         raise AssertionError(f"losses not finite: {m}")
+    det = deterministic_steps(state, it, n_det)
     split = {k: float(np.median([s[k] for s in spans[n_warm:]]))
              for k in spans[-1]}
     wall = float(np.median(walls))
@@ -1675,10 +1791,37 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3):
         top_kernels_ms_per_step=[[name[:60], ms / n_profiled,
                                   calls / n_profiled]
                                  for name, ms, calls in top[:10]],
-        peak_mem_gb=peak_gb, kernel_launches_in_training=train_counts,
+        peak_mem_gb=peak_gb, peak_reserved_gb=reserved_gb,
+        deterministic_steps=det, kernel_launches_in_training=train_counts,
         grads_nonzero=n_grads, live_vs_reloaded_max_abs=err,
         live_infer_launches=live_launches)
     return os.path.join(exp, "trained.pth"), train_counts
+
+
+def deterministic_steps(state, it, n):
+    """n steps of `it` under `TrainState.deterministic`, then the setting
+    put back: their ms, those on a bucket shape this setting meets first
+    (where cuDNN times its algorithms) apart from the rest, and the peak
+    reserved memory, the cache emptied before."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state.deterministic = True
+    ms, first, seen = [], [], set()
+    for _ in range(n):
+        batch = next(it)
+        shape = tuple(batch["spec"].shape)
+        t0 = time.perf_counter()
+        state.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        first.append(shape not in seen)
+        seen.add(shape)
+    state.deterministic = False
+    rest = [t for t, f in zip(ms, first) if not f]
+    return {"ms": ms, "ms_new_shape": [t for t, f in zip(ms, first) if f],
+            "ms_median_seen_shape": float(np.median(rest)) if rest else None,
+            "shapes": len(seen),
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
 
 
 def train_against_cpu(exp):
@@ -1732,6 +1875,36 @@ def dp_steps_check(got, want, what, limit):
     return max(worst.values())
 
 
+def deterministic_step_cost(state, batch, n_warm=3, n_turn=4, turns=3):
+    """The step under `TrainState.deterministic` against the default
+    setting, on one state: n_warm steps each, then turns of n_turn steps
+    (deterministic, default, default, deterministic, ...) -> medians,
+    their ratio, and each setting's peak reserved memory over its
+    warm-up, the cache emptied before."""
+    from tpu_rvc_torch.tools.dist_steps import run_steps
+
+    ms = {True: [], False: []}
+    reserved = {}
+    for det in (True, False):
+        state.deterministic = det
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run_steps(state, [batch] * n_warm)
+        reserved[det] = torch.cuda.max_memory_reserved() / 1e9
+    for i in range(2 * turns):
+        det = i % 4 in (0, 3)
+        state.deterministic = det
+        ms[det] += run_steps(state, [batch] * n_turn)[1]
+    state.deterministic = True
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"ms_deterministic": ms[True], "ms_default": ms[False],
+            "median_ms_deterministic": med[True],
+            "median_ms_default": med[False],
+            "ratio": med[True] / med[False],
+            "warm_reserved_gb_deterministic": reserved[True],
+            "warm_reserved_gb_default": reserved[False]}
+
+
 def data_parallel_training(tmp, exp):
     """T5: data-parallel and sharded training at full width (v2/48k), in
     child processes (this one joins no group): (a) the train CLI in an
@@ -1742,7 +1915,7 @@ def data_parallel_training(tmp, exp):
     import shutil
     from tpu_rvc_torch.core.config import hparams_for
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
-    from tpu_rvc_torch.tools.dist_steps import (Ranks, free_port,
+    from tpu_rvc_torch.tools.dist_steps import (Ranks, wait_for, free_port,
                                                 full_params, make_batch,
                                                 param_gap, run_steps)
     from tpu_rvc_torch.train.step import create_train_state
@@ -1781,17 +1954,31 @@ def data_parallel_training(tmp, exp):
                      2)
     try:
         reset_launch_counts()
+        # the CLI's epoch first: the one-process runs take the
+        # deterministic step, whose cuDNN search keeps its workspaces
+        # (`search_reserved_gb`), and two processes searching at once on
+        # one NVIDIA H100 80GB HBM3 (700 W) ran one out of memory, 79 GB
+        # in use
+        wait_for(os.path.join(cli_exp, "dp1.pth"), 300)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         runs = []
         for _ in range(2):   # two one-process runs: the step's own spread
             state = create_train_state(hp32, seed=7)
+            state.deterministic = True
             n_params = sum(p.numel() for net in (state.net_g, state.net_d)
                            for p in net.parameters())
             runs.append(run_steps(state, batches, (1, 5), full_params))
-            del state
-            torch.cuda.empty_cache()
+        search_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
         one, _, one_params = runs[0]
         spread = {n: param_gap(runs[1][2][n], one_params[n])
                   for n in (1, 5)}
+        # tests/test_torch_train.py's criterion, after one and five steps
+        if not all(spread[n]["beyond_1e6"] < 1e-3 for n in (1, 5)):
+            raise AssertionError(f"two one-process runs differ: {spread}")
+        det_ms = deterministic_step_cost(state, batches[-1])
+        del state
+        torch.cuda.empty_cache()
         # the unpinned steps: 1e-3 beyond twice what a second run moves
         unpinned_limit = {i: {k: 1e-3 + 2 * rel_err(runs[1][0][i][k], v)
                               for k, v in one[i].items()} for i in (3, 4)}
@@ -1835,11 +2022,10 @@ def data_parallel_training(tmp, exp):
         gap = {n: res[0]["layouts"][li]["snapshots"][n]["gap"]
                for n in (1, 5)}
         # after one step tests/test_torch_train.py's criterion; after five
-        # only its 2 lr a step: two one-process runs already differ in
-        # 5-9% of the elements by more than 1e-6 there (rounding that
-        # differs from run to run, amplified by the GAN and by Adam's
-        # normalised steps; tools/determinism_probe.py: bit-equal only
-        # under torch.use_deterministic_algorithms, at 1.7x the step)
+        # only its 2 lr a step: the ranks sum their rows' gradients in
+        # another order than one process does, and the GAN and Adam's
+        # normalised steps amplify that rounding (two one-process runs,
+        # which sum in one order, are held to the criterion above)
         if not (gap[1]["max_abs"] <= 2 * lr * 1.01
                 and gap[1]["beyond_1e6"] < 1e-3
                 and gap[5]["max_abs"] <= 10 * lr * 1.01):
@@ -1876,6 +2062,8 @@ def data_parallel_training(tmp, exp):
         fsdp_one_card=dict(mesh="(1, 2)", backend="gloo, CUDA tensors",
                            **out["fsdp_1x2"]),
         one_process_spread=spread,
+        deterministic_step=dict(det_ms,
+                                search_reserved_gb=search_reserved_gb),
         one_process_spread_unpinned_rel={
             i + 1: (max(v.values()) - 1e-3) / 2
             for i, v in unpinned_limit.items()},
@@ -1905,7 +2093,7 @@ def trained_model_converts(tmp, model):
     counts = dict(launch_counts)
     check_output(audio, expected_len(160000, vc.x_pad, 480, 48000),
                  "trained model's conversion")
-    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    want = v2_48k_launches()
     if counts != want:
         raise AssertionError(f"trained model launches {counts}, want {want}")
     x = load_audio(wav, 16000)
@@ -2053,7 +2241,7 @@ def host_f0_conversions(tmp):
     pipe = vc.pipeline
     pipe.f0_gen._estimators["crepe"] = CRePE(model_path=crepe_path)
     n_expected = expected_len(160000, vc.x_pad, 480, 48000)
-    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    want = v2_48k_launches()
     seen_times = []
     inner = pipe.pipeline
 
@@ -2361,7 +2549,7 @@ def checkpoint_tools(tmp, g_path):
     counts = dict(launch_counts)
     check_output(audio, expected_len(160000, vc.x_pad, 480, 48000),
                  "merged model's conversion")
-    want = {"banded_rel_attention": 6, "fused_stage": 72, "fused_resblock": 0}
+    want = v2_48k_launches()
     if counts != want:
         raise AssertionError(f"merged model launches {counts}, want {want}")
     renamed = change_info(merged, "changed info", "merged_info.pth", tmp)
@@ -2887,16 +3075,6 @@ def timed_runs(fn, n_timed=3):
     return walls, split, counts, out
 
 
-def want_launches(hp, calls, n_rb=None):
-    """K1 and K2 (or K3 on a one-resblock model) launches of `calls`
-    device calls of `Synthesizer.infer`."""
-    n_rb = len(hp.model.resblock_kernel_sizes) if n_rb is None else n_rb
-    stage = 6 * n_rb * len(hp.model.upsample_rates) * calls
-    return {"banded_rel_attention": hp.model.n_layers * calls,
-            "fused_stage": stage if n_rb > 1 else 0,
-            "fused_resblock": stage if n_rb == 1 else 0}
-
-
 def long_file(tmp, index):
     """D1: convert_long on the card through `VC.vc_single(chunk_parallel=
     True)` -> (launches of one conversion with pm, kernel shapes)."""
@@ -3331,8 +3509,7 @@ def web_app(tmp, exp):
                                      f"{body}")
             walls.append(ms)
             counts = dict(launch_counts)
-        want = {"banded_rel_attention": 6, "fused_stage": 72,
-                "fused_resblock": 0}
+        want = v2_48k_launches()
         if counts != want:
             raise AssertionError(f"launches of an HTTP infer_convert "
                                  f"{counts}, expected {want}")
@@ -3529,8 +3706,7 @@ def gui_file(tmp):
                 f"vs {written.shape}, max "
                 f"{np.abs(got.astype(int) - written).max()}")
     per_block = {k: v / GUI_BLOCKS for k, v in counts.items()}
-    want = {"banded_rel_attention": 6, "fused_stage": 72,
-            "fused_resblock": 0}
+    want = v2_48k_launches()
     if per_block != want:
         raise AssertionError(f"gui launches a block {per_block}")
     lines = [ln for ln in printed.getvalue().splitlines()
@@ -3566,6 +3742,215 @@ def mcd_card(floats):
                             card_vs_cpu_db=abs(on_card - on_cpu),
                             mcd_db_ungated=ungated, samples=len(gpu))
     say("mcd_card", energy_floor=MCD_FLOOR, limit_db=MCD_LIMIT_DB, **rows)
+
+
+# ---------------------------------------------------------------------------
+# P1-P2: the rest of the model family, offline and streaming
+# ---------------------------------------------------------------------------
+
+FAMILY_KINDS = [(v, sr, f0) for v in ("v1", "v2")
+                for sr in (32000, 40000, 48000) for f0 in (True, False)]
+# the kind of each version that converts with the index (10k rows of its
+# phone width): the upstream WebUI's default v2/40k, and v1/32k
+INDEXED = {("v1", 32000, True), ("v2", 40000, True)}
+
+
+def kind_name(version, sr, use_f0):
+    return f"{version}/{sr // 1000}k{'' if use_f0 else ' no f0'}"
+
+
+def family_model(tmp, version, sr, use_f0):
+    """The kind's random-weight full-width `.pth` (written once)."""
+    from tpu_rvc_torch.core.config import hparams_for
+
+    path = os.path.join(tmp, f"{version}_{sr // 1000}k"
+                             f"{'' if use_f0 else '_nof0'}.pth")
+    if not os.path.exists(path):
+        write_model(path, hparams_for(version, sr),
+                    seed=100 + sr // 1000 + 7 * (version == "v1")
+                    + 3 * use_f0, use_f0=use_f0)
+    return path
+
+
+def family_against_cpu(path, version, method, use_f0, hubs, tmp):
+    """A deterministic 1 s conversion of the kind on the card and on the
+    CPU (x_pad 0.5, no index): relative L2 of the float output before the
+    RMS mix and int16, as `against_cpu` reads it."""
+    from tpu_rvc_torch.audio.io import load_audio
+    from tpu_rvc_torch.models.loader import load_synthesizer
+    from tpu_rvc_torch.pipeline.vc import Pipeline
+
+    audio = load_audio(os.path.join(tmp, "voice_1s.wav"), 16000)
+    floats = []
+    for dev in ("cuda", "cpu"):
+        synth, _ = load_synthesizer(path, dev)
+        pipe = Pipeline(synth.sr, hubert=hubs[dev], synth=synth,
+                        version=version, x_pad=0.5, rmvpe_root=tmp,
+                        noise_scale=0.0, deterministic=True, device=dev)
+        rows = []
+        convert_rows = pipe._convert_rows
+
+        def spy(*args, **kw):   # the synthesizer's float rows
+            out = convert_rows(*args, **kw)
+            rows.append(out[0].double().cpu().numpy())
+            return out
+
+        pipe._convert_rows = spy
+        n = pipe.pipeline(0, audio, [0.0, 0.0, 0.0], 0, method, None, 0.0,
+                          int(use_f0), 3, 0, 0.25, 0.33).shape[0]
+        floats.append(rows[-1][pipe.t_pad_tgt: pipe.t_pad_tgt + n])
+    return rel_l2(floats[0], floats[1], f"{version} {method} card vs CPU")
+
+
+def family_offline(tmp):
+    """P1: every kind of {v1, v2} x {32k, 40k, 48k} x {f0, no f0} at full
+    width through `VC.get_vc` + a 10 s `vc_single` (one VC a version, so
+    each version's HuBERT tap: v1 layer 9 + final_proj, v2 layer 12): pm
+    (RMVPE for v1/40k), the index for the INDEXED kinds; length, finite
+    int16, 6 K1 and 18 K2 a level, the median wall of 3 after 1 warm-up,
+    peak memory; 1 s card against CPU -> launches by kind."""
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t_start = time.perf_counter()
+    wav = os.path.join(tmp, "voice_10s.wav")
+    launches = {}
+    for version in ("v1", "v2"):
+        vc = VC(rmvpe_root=tmp, hubert_path="random")
+        dim = 256 if version == "v1" else 768
+        index = random_index(dim)
+        hubs = None
+        for v, sr, use_f0 in FAMILY_KINDS:
+            if v != version:
+                continue
+            t0 = time.perf_counter()
+            hp = hparams_for(version, sr)
+            path = family_model(tmp, version, sr, use_f0)
+            vc.get_vc(path)
+            if hubs is None:   # the tap one VC keeps, and its CPU twin
+                hubs = {"cuda": vc._hubert,
+                        "cpu": hubert_for_version(version, "cpu")}
+            method = "rmvpe" if (version, sr) == ("v1", 40000) else "pm"
+            indexed = (version, sr, use_f0) in INDEXED
+            kw = dict(f0_method=method, index=index if indexed else None,
+                      index_rate=0.75 if indexed else 0.0)
+            n_expected = expected_len(160000, vc.x_pad, hp.data.hop_length,
+                                      sr)
+            what = kind_name(version, sr, use_f0)
+            torch.cuda.reset_peak_memory_stats()
+            _, (sr_out, audio) = vc.vc_single(0, wav, **kw)   # warm-up
+            check_output(audio, n_expected, f"{what} warm-up")
+            walls = []
+            for i in range(3):
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                _, (sr_out, audio) = vc.vc_single(0, wav, **kw)
+                walls.append((time.perf_counter() - t1) * 1e3)
+                counts = dict(launch_counts)
+                check_output(audio, n_expected, f"{what} run {i}")
+            want = want_launches(hp)
+            if sr_out != sr or counts != want or \
+                    vc.pipeline.synth.enc_p.emb_phone.in_features != dim:
+                raise AssertionError(f"{what}: rate {sr_out}, launches "
+                                     f"{counts}, expected {want}")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rel = family_against_cpu(path, version, method, use_f0, hubs,
+                                     tmp)
+            launches[what] = counts
+            say("family_offline", kind=what, f0_method=method if use_f0
+                else None, index_rows=10000 if indexed else 0,
+                phone_dim=dim, levels=len(hp.model.upsample_rates),
+                input_s=10.0, output_samples=int(audio.shape[0]), sr=sr,
+                wall_ms=walls, wall_ms_median=float(np.median(walls)),
+                launches=counts, peak_mem_gb=peak,
+                card_vs_cpu_rel_l2=rel,
+                seconds=time.perf_counter() - t0)
+        del vc, hubs
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_seconds("P1", t_start)
+    return launches
+
+
+# the two streaming kinds: v2/40k at 40 kHz with RMVPE, v1/32k (five
+# levels, C = 16) at 32 kHz with pm
+FAMILY_STREAMS = [("v2", 40000, "rmvpe"), ("v1", 32000, "pm")]
+
+
+def family_streaming(tmp, n_warm=3, n_timed=10, n_cpu=8):
+    """P2: StreamSession at the model's own rate, 0.25 s blocks, fused,
+    with the index: block p50/p90/max of n_timed after n_warm, blocks
+    over 250 ms (underruns, 0), launches each block; then deterministic,
+    n_cpu blocks on the card against the CPU (relative L2 < 1e-3) and
+    fused against the host path on the card (1e-4 of full scale)."""
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.rt import StreamSession
+
+    t_start = time.perf_counter()
+    launches = {}
+    for version, sr, method in FAMILY_STREAMS:
+        hp = hparams_for(version, sr)
+        path = family_model(tmp, version, sr, True)
+        geo = dict(STREAM, samplerate=sr)
+        want = want_launches(hp)
+        audio = voice((n_warm + n_timed) * 0.25, seed=6, sr=sr)
+        index = random_index(256 if version == "v1" else 768)
+        sess = StreamSession(stream_engine(path, tmp, "cuda", index,
+                                           version), f0method=method,
+                             fused=True, **geo)
+        feed_blocks(sess, audio, 0, n_warm)
+        walls, read = [], []
+
+        def each(i, wall):
+            walls.append(wall)
+            read.append(dict(launch_counts))
+            if read[-1] != want:
+                raise AssertionError(f"{version}/{sr} block {i}: launches "
+                                     f"{read[-1]}, want {want}")
+            reset_launch_counts()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        feed_blocks(sess, audio, n_warm, n_timed, each)
+        underruns = sum(w > 250.0 for w in walls)
+        if underruns:
+            raise AssertionError(f"{version}/{sr}: {underruns} blocks over "
+                                 f"250 ms: {walls}")
+        # deterministic: card against CPU, fused against host path
+        audio = voice(n_cpu * 0.25, seed=8, sr=sr)
+        outs, margins = {}, []
+        for dev, fused in (("cuda", True), ("cuda", False), ("cpu", True)):
+            eng = stream_engine(path, tmp, dev, version=version,
+                                noise_scale=0.0, deterministic=True)
+            s = StreamSession(eng, f0method=method, protect=0.33,
+                              fused=fused, **geo)
+            watch_sola(s, margins)
+            outs[dev, fused] = feed_blocks(s, audio, 0, n_cpu).astype(
+                np.float64)
+        rel = rel_l2(outs["cuda", True], outs["cpu", True],
+                     f"streaming {version}/{sr}")
+        host = float(np.abs(outs["cuda", True] - outs["cuda", False]).max())
+        if not host <= 1e-4:
+            raise AssertionError(f"streaming {version}/{sr}: fused path "
+                                 f"differs from host path by {host}")
+        what = f"{version}/{sr // 1000}k"
+        launches[what] = read[-1]
+        say("family_streaming", kind=what, samplerate=sr, f0method=method,
+            levels=len(hp.model.upsample_rates), block_s=0.25,
+            blocks=n_timed, wall_ms=walls,
+            wall_ms_median=float(np.median(walls)),
+            wall_ms_p90=float(np.percentile(walls, 90)),
+            wall_ms_max=float(np.max(walls)), underruns=underruns,
+            launches_per_block=read[-1], window_frames=sess.geometry.total
+            // sess.geometry.zc,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card_vs_cpu_rel_l2=rel, cpu_blocks=n_cpu,
+            fused_vs_host_max_abs=host, sola_margin_min=float(min(margins)))
+    phase_seconds("P2", t_start)
+    return launches
 
 
 def main():
@@ -3625,6 +4010,8 @@ def main():
         web_counts = web_app(tmp, exp)
         gui_counts = gui_file(tmp)
         mcd_card(against_cpu_floats)
+        family_counts = family_offline(tmp)
+        family_stream_counts = family_streaming(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -3643,6 +4030,10 @@ def main():
         e.update(device_rows[e["name"]])
         e["web_launches"] = web_counts[e["name"]]
         e["gui_launches"] = gui_counts[e["name"]]
+        e["family_launches"] = {k: c[e["name"]]
+                                for k, c in family_counts.items()}
+        e["family_stream_launches"] = {
+            k: c[e["name"]] for k, c in family_stream_counts.items()}
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,27 @@ def test_stage_kernel_tile_edges_and_main_path_widths(rng, cuda, C, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C,T,ks", [
+    (16, 5110, (3, 7, 11)), (16, 5110, (7,)),   # v1's fifth level, 10 frames
+    (16, 2321, (3, 7, 11)), (16, 2321, (7,)),   # C = 16, T % 4 == 1
+    (256, 290, (3, 7, 11)), (256, 290, (7,)),   # a 10x first level, 29
+    (128, 1162, (3, 7, 11))])                   # frames; T % 4 == 2
+def test_stage_kernel_family_widths_and_unaligned_t(rng, cuda, C, T, ks):
+    """The C = 16 build and the scalar staging path (T % 4 != 0) that the
+    v1/32k and v1/48k decoders and the 10x first levels of a streaming
+    block reach, K2 and K3: rtol 1e-3, atol 1e-4."""
+    x, ws, bs = stage_inputs(rng, C, T, ks)
+    sw = stage_weights(ws, bs, ks, cuda)
+    xt = torch.from_numpy(x.T.copy()).to(cuda)
+    name = "fused_resblock" if len(ks) == 1 else "fused_stage"
+    reset_launch_counts()
+    got = (fused_resblock if len(ks) == 1 else fused_stage)(xt, sw)
+    assert launch_counts[name] == 6 * len(ks)
+    torch.testing.assert_close(got, stage_plain(xt, sw), rtol=1e-3,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(rng, cuda):
     q, k, v, ek, ev, lens = attn_inputs(rng, 2, 40, 96, [40, 30])
     args = [torch.from_numpy(a).to(cuda) for a in (q, k, v, ek, ev, lens)]

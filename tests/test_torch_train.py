@@ -335,6 +335,83 @@ def test_train_step_matches_jax(world):
     assert state.step == 2
 
 
+def test_deterministic_step_is_reproducible_and_matches_jax(world):
+    """The step under `TrainState.deterministic` (`core/device.py`
+    `deterministic_math`): two fresh trainers on the fixture's weights take
+    the same two pinned steps bit for bit, each step's loss terms and grad
+    norms within 1e-3 relative of tpu_rvc's, and the caller's flags come
+    back after each step."""
+    flags = lambda: (torch.are_deterministic_algorithms_enabled(),  # noqa
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark,
+                     torch.utils.deterministic.fill_uninitialized_memory)
+    before = flags()
+    jstate, b = world["jstate"], world["batch"]
+    jbatch = {k: jnp.asarray(v) for k, v in b.items()}
+    wants = []
+    for _ in range(2):
+        jstate, want = world["step"](jstate, jbatch, jax.random.PRNGKey(1))
+        wants.append(want)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(HP, device="cpu",
+                                   g_state=world["state"].net_g.state_dict(),
+                                   d_state=world["state"].net_d.state_dict())
+        state.deterministic = True
+        for want in wants:
+            got = state.train_step(b)
+            assert flags() == before
+            for k in TERMS:
+                w, g = float(want[k]), float(got[k])
+                assert abs(g - w) <= 1e-3 * abs(w), f"{k}: {g} vs {w}"
+        runs.append({**{"g." + k: v for k, v in
+                        state.net_g.state_dict().items()},
+                     **{"d." + k: v for k, v in
+                        state.net_d.state_dict().items()}})
+    assert runs[0].keys() == runs[1].keys()
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+
+
+@pytest.mark.parametrize("T", [12, 13, 40])
+def test_band_skew_equals_clamped_scatter_and_gather(T):
+    """The training attention adds its band by pads and reshapes
+    (`band_to_dense`, `dense_to_band`), where the JAX branch scatters and
+    gathers at clamped columns (tpu_rvc/nn/attention.py:206-225): the same
+    values and the same gradients, bit for bit, fp32 and bf16."""
+    from tpu_rvc_torch.nn.attention import band_to_dense, dense_to_band
+
+    W = 10
+    rng = np.random.default_rng(T)
+    rows = torch.arange(T)[:, None]
+    cols = rows + torch.arange(-W, W + 1)[None, :]
+    valid = ((cols >= 0) & (cols < T)).float()
+    cols_c = cols.clamp(0, T - 1).expand(2, 3, T, 2 * W + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        band0 = t(rng.standard_normal((2, 3, T, 2 * W + 1)).astype(
+            np.float32)).to(dtype)
+        dense0 = t(rng.standard_normal((2, 3, T, T)).astype(
+            np.float32)).to(dtype)
+        w_out = t(rng.standard_normal((2, 3, T, 2 * W + 1)).astype(
+            np.float32)).to(dtype)
+        results = []
+        for skew in (False, True):
+            band = band0.clone().requires_grad_()
+            dense = dense0.clone().requires_grad_()
+            if skew:
+                scores = dense + band_to_dense(band, W)
+                read = dense_to_band(scores.softmax(-1), W)
+            else:
+                scores = dense.scatter_add(-1, cols_c,
+                                           band * valid.to(dtype))
+                read = torch.gather(scores.softmax(-1), -1, cols_c) * \
+                    valid.to(dtype)
+            (read * w_out).float().sum().backward()
+            results.append((scores, read, band.grad, dense.grad))
+        for want, got in zip(*results):
+            assert torch.equal(got, want)
+
+
 def test_train_state_from_jax_inverts_the_jax_conversion(world):
     g_sd, d_sd = train_state_from_jax(world["g"], world["d"], "v1")
     for net, ref in ((world["state"].net_g, g_sd),

@@ -56,6 +56,27 @@ def cudnn_autotune():
         cudnn.benchmark = saved
 
 
+@contextlib.contextmanager
+def deterministic_math():
+    """Run-to-run reproducible training math on the card: cuDNN held to
+    its deterministic algorithms and choosing among them by timing
+    (`cudnn.deterministic` with `cudnn.benchmark`), restoring the caller's
+    flags after.  The timed choice is made once a shape and a process, so
+    two runs in one process take the same algorithms; the heuristic's
+    deterministic pick made the v2/48k step 1.6x slower on an NVIDIA H100
+    80GB HBM3 at 700 W (`tools/determinism_probe.py`).  The port's own differentiable code
+    has no atomic adds on the training path (the spectrogram's frames,
+    `ops/stft.py`; the attention's band, `nn/attention.py`), so PyTorch's
+    `use_deterministic_algorithms` is not needed."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic = cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 _constants = {}
 
 

@@ -5,8 +5,9 @@ Inference (the default) sends T > W + 1 through `banded_rel_attention`
 (ops/kernels/rel_attention.py): the CUDA kernel on the card, its plain
 banded twin on the CPU.  The training forward (`train=True`, which
 `Synthesizer.forward` passes down) takes the JAX module's XLA branch
-instead (`:178-233`): dense scores with the band added by scatter, whole
-padded rows and columns masked, differentiable; the kernel has no
+instead (`:178-233`): dense scores with the band added in (by pads and
+reshapes, not the JAX branch's scatter), whole padded rows and columns
+masked, differentiable; the kernel has no
 backward, in the JAX package as here.  A graph that `torch.export`
 traces holds the kernel's plain twin, on any device: the ctypes launch is
 opaque to it.  Short sequences (T <= W + 1) take
@@ -138,21 +139,44 @@ class MultiHeadRelAttention(nn.Module):
     def _banded(self, qh, kh, vh, lengths):
         """The training branch for T > W + 1 (tpu_rvc/nn/attention.py:
         197-233): the relative tables are zero outside |i - j| <= W, so the
-        Shaw shuffles reduce to a banded scatter-add into the dense scores
-        and a banded gather out of the probabilities."""
+        Shaw shuffles reduce to adding the band (B, H, T, 2W+1) onto the
+        dense scores and reading it back out of the probabilities.  The
+        JAX branch scatters and gathers at clamped columns; here the band
+        is skewed in and out by pads and reshapes (`band_to_dense`,
+        `dense_to_band`), which give the same values bit for bit and a
+        backward without atomic adds, so the card's step is reproducible."""
         B, H, T, dk = qh.shape
         W = self.window_size
         qs = qh * (1.0 / math.sqrt(dk))
         scores = qs @ kh.transpose(-1, -2)                   # (B, H, T, T)
-        rows = torch.arange(T, device=qh.device)[:, None]
-        cols = rows + torch.arange(-W, W + 1, device=qh.device)[None, :]
-        valid = ((cols >= 0) & (cols < T)).to(qh.dtype)
-        cols_c = cols.clamp(0, T - 1).expand(B, H, T, 2 * W + 1)
-        band = (qs @ self.emb_rel_k[0].t()) * valid          # (B, H, T, 2W+1)
-        scores = scores.scatter_add(-1, cols_c, band.to(scores.dtype))
+        band = qs @ self.emb_rel_k[0].t()                    # (B, H, T, 2W+1)
+        scores = scores + band_to_dense(band.to(scores.dtype), W)
         p = self._softmax(scores, lengths, True)
-        rel_w = torch.gather(p, -1, cols_c) * valid.to(p.dtype)
+        rel_w = dense_to_band(p, W)
         return p @ vh + rel_w @ self.emb_rel_v[0].to(p.dtype)
+
+
+def band_to_dense(band, W: int):
+    """(..., T, 2W+1) -> (..., T, T) with out[i, j] = band[i, j - i + W]
+    where |i - j| <= W and zero elsewhere (band entries whose column
+    i + w - W falls outside [0, T) are dropped).  Each row padded by T
+    zeros and the whole re-cut into rows one shorter shifts row i right
+    by i."""
+    *lead, T, n = band.shape
+    flat = F.pad(band, (0, T)).reshape(*lead, T * (n + T))
+    skew = flat[..., :T * (n + T - 1)].reshape(*lead, T, n + T - 1)
+    return skew[..., W:W + T]
+
+
+def dense_to_band(p, W: int):
+    """The inverse read of `band_to_dense`: (..., T, T) -> (..., T, 2W+1)
+    with out[i, w] = p[i, i + w - W] where that column lies in [0, T),
+    zero elsewhere."""
+    *lead, T, _ = p.shape
+    n = 2 * W + 1
+    flat = F.pad(p, (W, W)).reshape(*lead, T * (T + n - 1))
+    rows = F.pad(flat, (0, T)).reshape(*lead, T, T + n)
+    return rows[..., :n]
 
 
 class FFN(nn.Module):

@@ -43,11 +43,34 @@ class DiscriminatorS(nn.Module):
     def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         fmap = []
         for conv in self.convs:
-            x = F.leaky_relu(conv(x), LRELU_SLOPE)
+            x = grouped_conv1d(conv, x) if conv.groups > 1 else conv(x)
+            x = F.leaky_relu(x, LRELU_SLOPE)
             fmap.append(x)
         x = self.conv_post(x)
         fmap.append(x)
         return torch.flatten(x, 1, -1), fmap
+
+
+def grouped_conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """A grouped Conv1d as one batched product over the unfolded frames
+    of x (B, C, T): the same sums as the convolution.  cuDNN's
+    deterministic algorithms for DiscriminatorS's grouped layers (4 input
+    channels a group, kernel 41, stride 4), which the deterministic
+    training step takes on the card (`core/device.py`
+    `deterministic_math`), made their backward 4-7x slower than the
+    default's on an NVIDIA H100 80GB HBM3 at 700 W
+    (`tools/determinism_probe.py --profile`); a product's backward has
+    no atomic adds."""
+    G, (k,), (s,), (p,) = (conv.groups, conv.kernel_size, conv.stride,
+                           conv.padding)
+    B, C = x.shape[:2]
+    w = conv.weight
+    O = w.shape[0]
+    frames = F.pad(x, (p, p)).unfold(-1, k, s)          # (B, C, T', k)
+    frames = frames.reshape(B, G, C // G, frames.shape[2], k)
+    y = torch.einsum("bgctk,gock->bgot", frames,
+                     w.reshape(G, O // G, C // G, k))
+    return y.reshape(B, O, -1) + conv.bias[:, None].to(y.dtype)
 
 
 class DiscriminatorP(nn.Module):

@@ -29,6 +29,19 @@ def hann_window(win_length: int, device="cpu") -> torch.Tensor:
     return device_constant(("hann", win_length), make, device)
 
 
+def frame_window(n_fft: int, win_length: Optional[int],
+                 device) -> torch.Tensor:
+    """The Hann window of `win_length` (default n_fft) zero-padded to
+    n_fft, centred in the frame as `torch.stft` has it."""
+    if win_length is None:
+        win_length = n_fft
+    window = hann_window(win_length, device)
+    if win_length < n_fft:
+        pad = (n_fft - win_length) // 2
+        window = F.pad(window, (pad, n_fft - win_length - pad))
+    return window
+
+
 def stft(y: torch.Tensor, n_fft: int, hop: int,
          win_length: Optional[int] = None) -> torch.Tensor:
     """Complex STFT, center=False.  y: (B, T) -> (B, n_fft//2+1, n_frames)."""
@@ -46,10 +59,16 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int,
     (n_fft - hop) // 2 a side, center=False, sqrt(|X|^2 + eps).  y: (B, T)
     -> (B, n_fft//2+1, frames), T // hop frames for T a multiple of hop.
     Differentiable; eps inside the root keeps the gradient finite at zero
-    magnitude."""
+    magnitude.  The frames are `unfold`'s, not `torch.stft`'s: the same
+    values, but a backward that sums each sample's frames in a fixed
+    order, where `torch.stft`'s overlapping strided view adds them up
+    with atomics on a card (the training step's mel loss runs through it,
+    so its gradient would differ from run to run)."""
     p = (n_fft - hop) // 2
     y = F.pad(y.float()[:, None], (p, p), mode="reflect")[:, 0]
-    spec = torch.view_as_real(stft(y, n_fft, hop, win_length))
+    frames = y.unfold(-1, n_fft, hop) * frame_window(n_fft, win_length,
+                                                     y.device)
+    spec = torch.view_as_real(torch.fft.rfft(frames, dim=-1)).transpose(1, 2)
     return torch.sqrt(spec.pow(2).sum(-1) + eps)
 
 
@@ -59,12 +78,7 @@ def istft(spec: torch.Tensor, n_fft: int, hop: int,
     """Inverse STFT: spec (B, F, n_frames) complex -> (B, T) with
     T = n_fft + hop * (n_frames - 1), or the `length` samples around its
     centre.  Overlap-add with window-square normalisation (floor 1e-11)."""
-    if win_length is None:
-        win_length = n_fft
-    window = hann_window(win_length, spec.device)
-    if win_length < n_fft:   # centred in the frame, as `torch.stft` has it
-        pad = (n_fft - win_length) // 2
-        window = F.pad(window, (pad, n_fft - win_length - pad))
+    window = frame_window(n_fft, win_length, spec.device)
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
     n_frames = frames.shape[1]
     T = n_fft + hop * (n_frames - 1)

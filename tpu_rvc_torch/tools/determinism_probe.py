@@ -2,27 +2,48 @@
 deterministic step costs.
 
     python3 -m tpu_rvc_torch.tools.determinism_probe [--runs 2] [--timed 10]
+        [--settings default deterministic ...] [--profile]
+        [--against DIR]
 
 Runs `chip_smoke.py` T5's one-process run (v2/48k at full width from
 seed 7, fp32 with TF32 off, four rows of 200, 163, 200 and 110 frames,
 three pinned then two unpinned steps) in child processes, `--runs` times
-under each setting, in turns:
+under each setting, in turns.  A setting is a set of switches:
 
-  deterministic  `torch.use_deterministic_algorithms(True,
-                 warn_only=True)`, `torch.backends.cudnn.deterministic`,
-                 and CUBLAS_WORKSPACE_CONFIG=:4096:8 in the child's
-                 environment (it must be set before the first cuBLAS
-                 handle, hence a process a run);
-  cudnn          `torch.backends.cudnn.deterministic` alone;
-  cublas         CUBLAS_WORKSPACE_CONFIG=:4096:8 alone;
-  default        none of them, as the training step runs.
+  algorithms  `torch.use_deterministic_algorithms(True, warn_only=True)`
+              (it also makes cuDNN take deterministic algorithms, and
+              fills every new tensor with NaN);
+  cudnn       `torch.backends.cudnn.deterministic`;
+  cublas      CUBLAS_WORKSPACE_CONFIG=:4096:8 in the child's environment
+              (it must be set before the first cuBLAS handle, hence a
+              process a run);
+  timed       `torch.backends.cudnn.benchmark`: cuDNN times its
+              algorithms for each new shape (among the deterministic ones
+              when `cudnn` or `algorithms` is on) instead of taking its
+              heuristic's pick;
+  step        the training step's own setting (`train/step.py`
+              `TrainState.deterministic`), the others left as they are.
 
-Each child then times `--timed` more steps on the unpinned batch.  Prints
+Each child takes the five steps twice from the seed, the second run's
+state then times `--timed` more steps on the unpinned batch.  Prints
 one JSON line a setting: the operations that warned they have no
 deterministic implementation, and against the first run of the setting,
 each other run's largest element difference and share of elements more
 than 1e-6 apart after 1 and 5 steps (`bit_equal` when every element is
-equal), and the median step ms of each run; then the card's name and
+equal), the first step's losses and the parameters whose first-step
+gradients differ (where the run-to-run rounding starts); the same for
+the two runs inside each process (`within_process`: cuDNN's timed
+choice of algorithms is made once a process, so only there do two runs
+under `timed` take the same algorithms); and the median step ms of each
+run.  `--profile` adds, in the first run of each
+setting, torch.profiler's device time a step by kernel, and by
+convolution operator and input shapes, over 3 steps, and a line that
+sets each setting's kernels and convolutions against `default`'s (the
+largest differences first).  `--against DIR` runs, in each turn, the
+default step of the checkout in DIR (another version of this package,
+its own probe's child) as well, first in even turns and last in odd
+ones, and prints each setting's median step ms over DIR's in the same
+turn: the ratios, their median and quartiles.  Then the card's name and
 power limit.  Needs a CUDA card.
 """
 
@@ -37,15 +58,71 @@ import sys
 import tempfile
 import warnings
 
-# setting -> (use_deterministic_algorithms, cudnn.deterministic, the
-# cuBLAS workspace configuration)
-SETTINGS = {"deterministic": (True, True, True), "cudnn": (False, True, False),
-            "cublas": (False, False, True), "default": (False, False, False)}
+SETTINGS = {
+    "default": (),
+    "deterministic": ("algorithms", "cudnn", "cublas"),
+    "cudnn": ("cudnn",),
+    "cublas": ("cublas",),
+    "algorithms": ("algorithms",),
+    "cudnn_timed": ("cudnn", "timed"),
+    "step": ("step",),
+}
 LENGTHS = (200, 163, 200, 110)
 SNAPSHOTS = (1, 5)
+PROFILED_STEPS = 3
 
 
-def child(setting: str, n_timed: int, out: str) -> None:
+def _grad_recorder(state):
+    """Record every parameter's gradient of the first step, as it is
+    accumulated (the step drops them after each update) -> the dict it
+    fills, by 'g.'/'d.' name."""
+    grads = {}
+    for tag, net in (("g.", state.net_g), ("d.", state.net_d)):
+        for name, p in net.named_parameters():
+            def hook(p, key=tag + name):
+                if state.step == 0:
+                    grads[key] = p.grad.detach().cpu().clone()
+            p.register_post_accumulate_grad_hook(hook)
+    return grads
+
+
+def _kernel_table(prof, n_steps: int):
+    """Device ms a step by kernel name, from a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "#" in e.key or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows[e.key] = [us / 1e3 / n_steps, e.count / n_steps]
+    return rows
+
+
+CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+            "aten::convolution_backward")
+
+
+def _conv_table(prof, n_steps: int):
+    """Device ms a step of each convolution operator by its input shapes
+    (the forward and the backward, each with the kernels it launched)."""
+    rows = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key not in CONV_OPS:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        shapes = [s for s in e.input_shapes if s][:3]
+        rows[f"{e.key} {shapes}"] = [us / 1e3 / n_steps, e.count / n_steps]
+    return rows
+
+
+def child(setting: str, n_timed: int, out: str, profile: bool) -> None:
     import dataclasses
 
     import numpy as np
@@ -56,24 +133,47 @@ def child(setting: str, n_timed: int, out: str) -> None:
                                                 run_steps)
     from tpu_rvc_torch.train.step import create_train_state
 
-    algorithms, cudnn, _ = SETTINGS[setting]
-    if algorithms:
+    on = set(SETTINGS[setting])
+    if "algorithms" in on:
         torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = cudnn
+    torch.backends.cudnn.deterministic = "cudnn" in on
+    torch.backends.cudnn.benchmark = "timed" in on
     hp = hparams_for("v2", 48000)
     hp = dataclasses.replace(hp, train=dataclasses.replace(
         hp.train, fp16_run=False))
     batches = ([make_batch(hp, LENGTHS, 21, 200, pins=(10, 120, 150, 60))]
                * 3 + [make_batch(hp, LENGTHS, 22, 200)] * 2)
-    state = create_train_state(hp, seed=7, device="cuda")
+
+    def one_run():
+        state = create_train_state(hp, seed=7, device="cuda")
+        state.deterministic = "step" in on
+        grads = _grad_recorder(state)
+        return (state, grads, *run_steps(state, batches, SNAPSHOTS,
+                                         full_params))
+
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        _, ms, snaps = run_steps(state, batches, SNAPSHOTS, full_params)
+        _, grads_0, _, _, snaps_0 = one_run()   # the same run again, here
+        state, grads, metrics, ms, snaps = one_run()
         _, timed, _ = run_steps(state, batches[-1:] * n_timed)
+    within = {str(n): param_gap(snaps[n], snaps_0[n]) for n in SNAPSHOTS}
+    within["grads_1"] = grads_that_differ(grads, grads_0)
     ops = sorted({re.split(r" does not have", str(w.message))[0]
                   for w in caught
                   if "deterministic" in str(w.message)})
+    kernels = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA],
+                      record_shapes=True) as prof:
+            run_steps(state, batches[-1:] * PROFILED_STEPS)
+        kernels = _kernel_table(prof, PROFILED_STEPS)
+        kernels["convs"] = _conv_table(prof, PROFILED_STEPS)
     torch.save({"snapshots": snaps, "ms": ms + timed, "ops": ops,
+                "losses_1": metrics[0], "grads_1": grads, "within": within,
+                "kernels": kernels,
                 "median_timed_ms": float(np.median(timed))}, out)
 
 
@@ -86,6 +186,54 @@ def param_gap(got, want):
             "bit_equal": bool((diff == 0).all())}
 
 
+def grads_that_differ(got, want, top: int = 12):
+    """The parameters whose first-step gradients are not bit-equal, by
+    module path (the parameter's name without its last part), largest
+    difference first: [(module, parameters, max abs difference)]."""
+    mods = {}
+    for k, w in want.items():
+        d = float((got[k] - w).abs().max())
+        if d > 0 or not bool((got[k] == w).all()):
+            mod = k.rsplit(".", 1)[0]
+            n, worst = mods.get(mod, (0, 0.0))
+            mods[mod] = (n + 1, max(worst, d))
+    rows = sorted(((m, n, d) for m, (n, d) in mods.items()),
+                  key=lambda r: -r[2])
+    return {"n_params": len(want),
+            "n_differ": sum(n for _, n, _ in rows),
+            "modules": [list(r) for r in rows[:top]],
+            "n_modules": len(rows)}
+
+
+def kernel_delta(table, base, top: int = 15):
+    """Kernels whose device ms a step differ most from `base`'s:
+    [(name, ms here, ms in base, calls here, calls in base)]."""
+    names = set(table) | set(base)
+    rows = [(n[:160], table.get(n, [0.0, 0])[0], base.get(n, [0.0, 0])[0],
+             table.get(n, [0.0, 0])[1], base.get(n, [0.0, 0])[1])
+            for n in names]
+    rows.sort(key=lambda r: -abs(r[1] - r[2]))
+    return {"total_ms": sum(v[0] for v in table.values()),
+            "base_total_ms": sum(v[0] for v in base.values()),
+            "top": [[n, round(a, 3), round(b, 3), ca, cb]
+                    for n, a, b, ca, cb in rows[:top]]}
+
+
+def _against_child(root: str, n_timed: int, tmp: str, i: int):
+    """The `default` setting of the checkout in `root`, by its own probe
+    -> what its child saved."""
+    import torch
+
+    out = os.path.join(tmp, f"against_{i}.pt")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    subprocess.run([sys.executable, "-m",
+                    "tpu_rvc_torch.tools.determinism_probe", "--timed",
+                    str(n_timed), "--child", "default", out],
+                   env=env, cwd=root, check=True, timeout=900)
+    return torch.load(out, weights_only=False)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python3 -m tpu_rvc_torch.tools.determinism_probe")
@@ -93,49 +241,91 @@ def main(argv=None) -> int:
     p.add_argument("--timed", type=int, default=10)
     p.add_argument("--settings", nargs="+", default=list(SETTINGS),
                    choices=list(SETTINGS))
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--against", metavar="DIR")
     p.add_argument("--child", nargs=2, metavar=("SETTING", "OUT"),
                    help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:
-        child(args.child[0], args.timed, args.child[1])
+        child(args.child[0], args.timed, args.child[1], args.profile)
         return 0
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("determinism_probe: CUDA is not available", file=sys.stderr)
         return 2
     results = {s: [] for s in args.settings}
+    against = []
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(args.runs):
+            if args.against and i % 2 == 0:
+                against.append(_against_child(args.against, args.timed,
+                                              tmp, i))
             for setting in args.settings:
                 env = dict(os.environ)
-                if SETTINGS[setting][2]:
+                if "cublas" in SETTINGS[setting]:
                     env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
                 else:
                     env.pop("CUBLAS_WORKSPACE_CONFIG", None)
                 out = os.path.join(tmp, f"{setting}_{i}.pt")
-                subprocess.run(
-                    [sys.executable, "-m",
-                     "tpu_rvc_torch.tools.determinism_probe", "--timed",
-                     str(args.timed), "--child", setting, out],
-                    env=env, check=True, timeout=900)
+                cmd = [sys.executable, "-m",
+                       "tpu_rvc_torch.tools.determinism_probe", "--timed",
+                       str(args.timed), "--child", setting, out]
+                if args.profile and i == 0:
+                    cmd.append("--profile")
+                subprocess.run(cmd, env=env, check=True, timeout=900)
                 results[setting].append(torch.load(out, weights_only=False))
+            if args.against and i % 2 == 1:
+                against.append(_against_child(args.against, args.timed,
+                                              tmp, i))
     for setting, runs in results.items():
-        first = runs[0]["snapshots"]
-        print(json.dumps({
-            "setting": setting,
+        first = runs[0]
+        line = {
+            "setting": setting, "switches": list(SETTINGS[setting]),
             "ops_without_deterministic_implementation": sorted(
                 {op for r in runs for op in r["ops"]}),
             "against_first_run": [
-                {str(n): param_gap(r["snapshots"][n], first[n])
-                 for n in SNAPSHOTS} for r in runs[1:]],
+                {**{str(n): param_gap(r["snapshots"][n],
+                                      first["snapshots"][n])
+                    for n in SNAPSHOTS},
+                 "losses_1_equal": r["losses_1"] == first["losses_1"],
+                 "grads_1": grads_that_differ(r["grads_1"],
+                                              first["grads_1"])}
+                for r in runs[1:]],
+            "within_process": [r["within"] for r in runs],
             "median_step_ms": [r["median_timed_ms"] for r in runs],
-            "step_ms": [r["ms"] for r in runs]}), flush=True)
-    print(subprocess.run(
+            "step_ms": [r["ms"] for r in runs]}
+        print(json.dumps(line), flush=True)
+    if args.profile and "default" in results:
+        base = dict(results["default"][0]["kernels"])
+        base_convs = base.pop("convs")
+        deltas = {}
+        for s, r in results.items():
+            if s != "default":
+                table = dict(r[0]["kernels"])
+                convs = table.pop("convs")
+                deltas[s] = dict(kernel_delta(table, base),
+                                 convs=kernel_delta(convs, base_convs, 12))
+        print(json.dumps({"kernels_against_default": deltas}), flush=True)
+    if against:
+        base = [r["median_timed_ms"] for r in against]
+        ratios = {s: [r["median_timed_ms"] / b for r, b in zip(runs, base)]
+                  for s, runs in results.items()}
+        print(json.dumps({
+            "against": os.path.abspath(args.against),
+            "against_median_step_ms": base,
+            "ratio_to_against": {
+                s: {"each": v, "median": float(np.median(v)),
+                    "quartiles": [float(np.percentile(v, 25)),
+                                  float(np.percentile(v, 75))]}
+                for s, v in ratios.items()}}), flush=True)
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
     return 0
 
 

@@ -149,7 +149,7 @@ def param_gap(got: Dict[str, torch.Tensor],
             "beyond_1e6": float((diff > 1e-6).float().mean())}
 
 
-def _wait_for(path, timeout_s: float = 600) -> None:
+def wait_for(path, timeout_s: float = 600) -> None:
     """Wait until the file `path` exists (None: at once): the launcher's
     signal that the card is free for the timed part."""
     deadline = time.monotonic() + timeout_s
@@ -188,7 +188,7 @@ def _steps(job, rank, device):
             if layout[1] > 1:
                 fracs.append(fsdp.assert_state_sharded(state, "model", 0.5))
         if i == 0:
-            _wait_for(job.get("gate"))
+            wait_for(job.get("gate"))
             reference = (torch.load(job["reference"], map_location="cpu",
                                     weights_only=True)
                          if rank == 0 and job.get("reference") else None)
@@ -278,7 +278,7 @@ def _cli_timing(job, rank, world, port, device):
             e += 1
 
     it = batches()
-    _wait_for(job.get("gate"))
+    wait_for(job.get("gate"))
     ms, peak = {"group": [], "none": []}, {"group": 0.0, "none": 0.0}
     for i, arm in enumerate(["group"] * job["n_warm"]
                             + [a for a in ("group", "none", "none", "group")

@@ -50,7 +50,8 @@ import torch
 import torch.distributed as dist
 
 from tpu_rvc_torch.core.config import HParams
-from tpu_rvc_torch.core.device import RowGenerators, fp32_math, resolve_device
+from tpu_rvc_torch.core.device import (RowGenerators, deterministic_math,
+                                       fp32_math, resolve_device)
 from tpu_rvc_torch.models.synthesizer import Synthesizer, make_synthesizer
 from tpu_rvc_torch.nn.discriminators import MultiPeriodDiscriminator
 from tpu_rvc_torch.ops.mel import mel_spectrogram, spec_to_mel
@@ -131,7 +132,13 @@ class TrainState:
 
     `rows` (offset, stride): local row j of a batch is row j * stride +
     offset of the global batch, (group rank, group size) by default;
-    `fsdp`: FSDP2 reduces the gradients (`parallel/fsdp.py`)."""
+    `fsdp`: FSDP2 reduces the gradients (`parallel/fsdp.py`);
+    `deterministic` (off by default): each step runs under
+    `core/device.py` `deterministic_math`, so two runs from one seed in
+    one process take the same steps bit for bit on a card (the CPU's
+    steps are so without it).  Off by default: cuDNN then times its
+    algorithms for each new shape and keeps their workspace, at the step
+    time and memory `ROADMAP.md` C.1 records."""
 
     def __init__(self, hp: HParams, net_g: Synthesizer,
                  net_d: MultiPeriodDiscriminator, steps_per_epoch: int = 100,
@@ -146,6 +153,7 @@ class TrainState:
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
         self.opt_g, self.opt_d = map(self.make_optimizer, (net_g, net_d))
         self.step = 0
+        self.deterministic = False
 
     def make_optimizer(self, net: torch.nn.Module) -> torch.optim.AdamW:
         t = self.hp.train
@@ -184,8 +192,13 @@ class TrainState:
             p.grad = None
         return norm
 
-    @fp32_math()
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        with (deterministic_math() if self.deterministic
+              else contextlib.nullcontext()):
+            return self._train_step(batch)
+
+    @fp32_math()
+    def _train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One D-then-G step on a batch of the JAX layout (channel-last):
         phone (B, T, D), phone_lengths (B,), pitch (B, T) int, pitchf
         (B, T), spec (B, T, F), spec_lengths (B,), wave (B, T * hop, 1),
