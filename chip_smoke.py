@@ -16,7 +16,10 @@ Phases, one line of output each (any failure exits non-zero):
      level of v1/32k, v1/40k (= v2/40k), v1/48k and v2/32k (the five-level
      v1 decoders end at C = 16), K3 at v1/32k's and v1/40k's levels and
      v1/48k's C = 16 level, both at (256, 290) and (16, 2321), whose
-     T % 4 != 0 takes the kernel's scalar staging path;
+     T % 4 != 0 takes the kernel's scalar staging path; and K2 with a
+     stream axis of 8 at v1/32k's five streaming levels (C = 16 at
+     (8, 16, 9600)), at v2/40k's four and at those two unaligned shapes,
+     bit for bit against stream-by-stream launches as in 11;
   3. end to end through the user's entry points: a random-weight v2/48k
      small model `.pth` in the reference layout, a random 10k x 768 index,
      a synthetic 10 s WAV; VC(hubert_path="random").get_vc(path) and
@@ -35,13 +38,13 @@ Phases, one line of output each (any failure exits non-zero):
   8. streaming at full width: RealtimeVC + StreamSession(48000, 0.25,
      0.05, 2.5, "rmvpe", fused=True) with the index, 3 warm-up blocks (one
      of them with PyTorch's sync debug mode set to "error" between the
-     upload and the fetch), then 20 blocks: wall ms, per-stage CUDA-event
+     upload and the fetch), then 10 blocks: wall ms, per-stage CUDA-event
      ms and launches per block, and from torch.profiler over 4 more
      blocks the device's busy ms a block (its share of the median wall of
-     the 20 unprofiled blocks); the same 20 blocks with fused=False; the
+     the 10 unprofiled blocks); the same 10 blocks with fused=False; the
      host µs a block spends keying the decoder's stage-weight cache;
   9. streaming on the single-resblock model: 5 blocks;
- 10. streaming on the card against the CPU, deterministic, 8 blocks, pm
+ 10. streaming on the card against the CPU, deterministic, 6 blocks, pm
      and rmvpe (relative L2 < 1e-3), and fused against host path on the
      card (max abs difference < 1e-4 of full scale);
  11. the kernels with a stream axis, as one serving tick of 8 streams
@@ -51,8 +54,8 @@ Phases, one line of output each (any failure exits non-zero):
      single-stream ms and the bound of 8 x the work;
  12. multi-stream serving at full width: SlotScheduler(48000, 0.25, 0.05,
      2.5, "rmvpe") with the index, N clients attached and fed their own
-     voices in lockstep, for N = 8 (3 warm-up + 20 timed ticks), 1 and 4
-     (3 + 10): serial mode with wall ms, CUDA-event spans, launches a tick
+     voices in lockstep, for N = 8, 1 and 4 (3 warm-up + 10 timed ticks
+     at N = 8, 5 at N = 1 and 4): serial mode with wall ms, CUDA-event spans, launches a tick
      (6 K1 and 72 K2 for every N), the device's busy share, peak memory,
      underruns (0); then pipelined on the same audio (delivered one tick
      later, the last block by flush(); within 1e-5 of the serial run, as
@@ -61,8 +64,8 @@ Phases, one line of output each (any failure exits non-zero):
      4 slots (24 K3 launches a tick); then pipelined against serial sample
      for sample, 4 slots, 5 blocks, deterministic engine, cuDNN held to
      its deterministic algorithms;
- 13. every stream of a deterministic 8-slot scheduler against its own
-     StreamSession on the card (1e-4 of full scale, SOLA margins
+ 13. every stream of a deterministic 8-slot scheduler, 6 blocks, against
+     its own StreamSession on the card (1e-4 of full scale, SOLA margins
      printed), and two of them against a scheduler on the CPU (relative L2
      < 1e-3); then a tick that feeds slots 0 and 3 only (the other six
      state rows bit-identical), and a client that leaves slot 2 while a
@@ -78,17 +81,17 @@ Phases, one line of output each (any failure exits non-zero):
      `rmvpe.pt`, HuBERT-base from a seed, on the card) and index, then the
      filelist (16 rows and 2 mute rows);
  T2. GAN training at v2/48k full width (batch 4, segment 17280, bf16 as
-     the preset says): `run_training` for 3 epochs with a checkpoint each,
-     then resumed for a 4th; no K1/K2/K3 launch; on the state of epoch 4 a
-     gradient in enc_p's attention and every resblock, then 3 warm-up + 12
+     the preset says): `run_training` for 1 epoch with a checkpoint,
+     then resumed for a 2nd; no K1/K2/K3 launch; on the state of epoch 2 a
+     gradient in enc_p's attention and every resblock, then 3 warm-up + 8
      steps timed one by one on the host clock after a synchronize (median,
      p90, max, samples a second), CUDA-event spans `g_forward`, `d_step`,
      `g_step`, the host's batch time, peak memory, the device's busy share
-     and top kernels over 3 more steps (torch.profiler); 8 more steps
-     under the deterministic setting (`TrainState.deterministic`, off by
-     default): their ms, split into steps on a bucket shape new to that
-     setting (cuDNN times its algorithms there) and the rest, and the
-     peak reserved memory of each setting's steps; the live G's
+     and top kernels over 3 more steps (torch.profiler); the last of them
+     under the deterministic option (`TrainState.deterministic`) in bf16
+     twice from one state, the first searching cuDNN's algorithms: both
+     bit for bit equal, finite (the first step's seconds, the second's ms,
+     reserved memory); the live G's
      `infer` (its stage cache filled before the optimizer moved its
      weights in place) against its `G_*.pth` reloaded (1e-5 of full
      scale);
@@ -124,12 +127,24 @@ Phases, one line of output each (any failure exits non-zero):
  T4. the small model T2 wrote through `VC.get_vc` and a 10 s `vc_single`
      with RMVPE (6 K1 and 72 K2 launches), and the same conversion,
      deterministic, on the card against the CPU (relative L2 < 1e-3);
+ T6. the family in training, T1's 16 voices prepared at each kind's
+     rate, full width, batch 4, bf16 as the presets say, 2 epochs with a
+     checkpoint each: v2/40k with f0 (RMVPE) through the web app's
+     `Api.train_start_all`, v1/32k with f0 (pm) through `run_training`,
+     v1/48k and v2/32k without f0 through `apps/train.py`; each step of
+     the run timed to a synchronize (the first of each bucket shape
+     reported) and its peak reserved memory; on the last epoch's state
+     its G against that epoch's G_*.pth (1e-5), 3 warm-up + 8 steps
+     timed as in T2 (spans, peak memory), finite losses, no K1/K2/K3 launch; the small model through a
+     10 s `vc_single` (6 K1, 18 K2 a level) and 1 s card against CPU
+     (relative L2 < 1e-3); at v1/32k also T3's pinned fp32 step against
+     the CPU;
  F1. FCPE offline: a random-weight torchfcpe bundled checkpoint at the
      bundled width (hidden 512, 6 layers, kernel 31, 360 bins), found by
      the estimator's default lookup from a temporary working directory;
      vc_single(f0_method="fcpe") as in 3 (launches equal to pm's), and
      1 s on the card against the CPU (relative L2 < 1e-3);
- F2. FCPE streaming: phase 8's fused session with "fcpe" (20 timed
+ F2. FCPE streaming: phase 8's fused session with "fcpe" (10 timed
      blocks, one warm-up block under the sync debug mode, the profiler's
      busy ms), and phase 10 with "fcpe" (card against CPU, fused against
      host path);
@@ -168,7 +183,8 @@ Phases, one line of output each (any failure exits non-zero):
      + 3 timed: wall ms, CUDA-event spans (resample, stft, net, istft),
      the profiler's busy ms and share, windows and the window group,
      FlopCounterMode's operations and TFLOP/s beside the fp32 peak, peak
-     memory, no K1/K2/K3 launch; the host path (UVR5Separator) and device
+     memory, no K1/K2/K3 launch; the host path (UVR5Separator, 1 warm-up
+     + 1 timed) and device
      against host (relative L2 < 0.05); a 3-minute mix's peak memory; 3 s
      on the card against the CPU (int16 within 2 LSB); the HP3 name swaps
      the stems;
@@ -188,14 +204,14 @@ Phases, one line of output each (any failure exits non-zero):
  D1. a long file across devices: a 3-minute voice (3 silence-split
      chunks in one bucket) through VC.vc_single(chunk_parallel=True) on
      make_mesh() over the visible cards, pm and rmvpe with the index, 1
-     warm-up + 3 timed: wall ms, CUDA-event spans, the profiler's busy ms
+     warm-up + 1 timed: wall ms, CUDA-event spans, the profiler's busy ms
      and share, peak memory, launches (6 K1 / 72 K2 a call of at most
      ROWS_PER_CALL rows), beside the sequential path's wall and launches
      on the same file; deterministic: the chunks whose own bucket is the
      common one against the sequential path (4 LSB on > 99.9% of
      samples), a mesh that names the card twice against one shard (1
      LSB), 12 s in 3 chunks of a small geometry on the card against the
-     CPU (relative L2 < 1e-3); the peak memory of a 20-minute file; a
+     CPU (relative L2 < 1e-3); the peak memory of a 10-minute file; a
      short chunk-parallel conversion on the one-resblock model (K3);
  D2. B utterances as one batch: batch_convert of 8 x 10 s voices in a
      16 s bucket, pm and the index, one call: wall, spans, busy share,
@@ -247,6 +263,19 @@ Phases, one line of output each (any failure exits non-zero):
      then 8 deterministic blocks on the card against the CPU (relative L2
      < 1e-3) and the fused against the host path (1e-4 of full scale);
      each P phase prints its seconds;
+ P3. the family serving: SlotScheduler over random-weight models with the
+     index, 0.25 s blocks, 3 warm-up and 10 timed ticks as in 12: v2/40k
+     (RMVPE) to 48 kHz clients, N = 1, 4, 8, serial and pipelined; v1/32k
+     (pm, 90 K2 a tick) to 32 kHz clients, N = 8; v2/32k without f0 to
+     48 kHz clients, N = 4; launches each tick, p50/p90/max, busy share,
+     peak memory, 0 underruns; then as in 13 each stream against its own
+     StreamSession (1e-4 of full scale) and two against a CPU scheduler;
+ P4. the separated vocal into a 40 kHz model: the web app's
+     `Api.uvr_convert` of the 30 s song with U1's HP5-style net, then
+     `Api.infer_convert` of the vocal with P1's v2/40k model (pm), each
+     within 1 LSB of `DeviceSeparator.separate` and `VC.vc_single` called
+     directly, the output's length at 40 kHz, 6 K1 and 72 K2, the wall ms
+     of each half;
 then one JSON line of kernels, the card line again, and the result line.
 Each phase line carries `t_s`, the seconds since the script started.
 """
@@ -441,6 +470,7 @@ def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1,
 # one streaming block at 48 kHz, 0.25 s blocks, 0.05 s crossfade, 2.5 s of
 # context: enc_p sees the 281-frame window, the decoder the 30-frame tail
 STREAM_T = 281
+STREAM_FRAMES = 30    # the decoded tail of a 0.25 s block, at any rate
 STREAM_STAGES = [(256, 360), (128, 3600), (64, 7200), (32, 14400)]
 BATCH_N = 8   # streams of one serving tick
 
@@ -504,6 +534,7 @@ def check_kernels():
     b3 = check_stage(rs, g, "fused_resblock", [(64, 7200)], (7,),
                      "kernel_batch", N=BATCH_N)
     family = check_family_kernels(rs, g)
+    family["fused_stage"]["family_batch"] = check_family_batch_kernels(rs, g)
     return [
         kernel_entry("banded_rel_attention",
                      "tpu_rvc/ops/pallas/rel_attention.py:75", k1, s1, b1),
@@ -575,6 +606,31 @@ def check_family_kernels(rs, g):
                                         plain_ms=r[2], bound_ms=r[3],
                                         bound_by=r[4])
                                    for (C, T), r in zip(UNALIGNED, rows)]}
+    return out
+
+
+# the serving ticks of other kinds (P3): the stream axis's levels for a
+# 30-frame block tail at five levels down to C = 16 (v1/32k) and at 40k's
+# four (v2/40k); and the UNALIGNED shapes with a stream axis
+FAMILY_STREAM_DECODERS = [("v1", 32000), ("v2", 40000)]
+
+
+def check_family_batch_kernels(rs, g):
+    """Phase 2's stream-axis rows for the rest of the family: K2 at
+    (BATCH_N, C, T) for each streaming level of FAMILY_STREAM_DECODERS and
+    at the UNALIGNED shapes, against the plain twin and, bit for bit,
+    against stream-by-stream launches -> the `family_batch` keys."""
+    ks = (3, 7, 11)
+    cases = {f"{v}/{sr // 1000}k": preset_levels(v, sr, STREAM_FRAMES)
+             for v, sr in FAMILY_STREAM_DECODERS}
+    cases["unaligned"] = UNALIGNED
+    out = {"streams": BATCH_N}
+    for key, shapes in cases.items():
+        rows = check_stage(rs, g, "fused_stage", shapes, ks,
+                           "kernel_family_batch", N=BATCH_N, preset=key)
+        out[key] = [dict(C=C, T=T, max_abs_err=r[0], ms=r[1], plain_ms=r[2],
+                         bound_ms=r[3], bound_by=r[4])
+                    for (C, T), r in zip(shapes, rows)]
     return out
 
 
@@ -998,7 +1054,7 @@ def export_check_us(sess, audio, first, reps=100000):
             n["check"] * check_us + n["draw"] * wrap_us)
 
 
-def streaming(tmp, n_warm=3, n_timed=20, n_profiled=4, f0method="rmvpe",
+def streaming(tmp, n_warm=3, n_timed=10, n_profiled=4, f0method="rmvpe",
               paths=(True, False), phase="streaming"):
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.rt import StreamSession
@@ -1145,8 +1201,8 @@ def still_clock():
     return 0.0
 
 
-def client_voices(n, seconds, first_seed):
-    return [voice(seconds, seed=first_seed + i, sr=48000) for i in range(n)]
+def client_voices(n, seconds, first_seed, sr=48000):
+    return [voice(seconds, seed=first_seed + i, sr=sr) for i in range(n)]
 
 
 def check_blocks(outs, bf, what):
@@ -1173,22 +1229,30 @@ def lockstep_tick(sched, slots, audios, i, each=None):
 
 
 def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
-            modes=(False, True), phase="serving"):
-    """Phase 12 for one N: serial, then pipelined, on the same audio.
-    Returns the launches of one tick."""
+            modes=(False, True), phase="serving", kind=("v2", 48000, True),
+            samplerate=48000):
+    """Phase 12 for one N (P3 for another `kind` (version, sr, use_f0) of
+    model, the index of its phone width, clients at `samplerate`):
+    serial, then pipelined, on the same audio.  Returns the launches of
+    the last timed tick, as read."""
+    from tpu_rvc_torch.core.config import hparams_for
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.serve import SlotScheduler
     from tpu_rvc_torch.utils import timing
 
-    model = os.path.join(tmp, "v2_48k.pth")
-    engine = stream_engine(model, tmp, "cuda", random_index())
+    version, sr, use_f0 = kind
+    hp = hparams_for(version, sr)
+    model = family_model(tmp, version, sr, use_f0)   # v2/48k: phase 3's
+    engine = stream_engine(model, tmp, "cuda",
+                           random_index(hp.encoder_dim), version)
     n_all = n_warm + n_timed + n_profiled
-    audios = client_voices(n_slots, n_all * 0.25, 20)
-    want = v2_48k_launches()
-    streams = {}
+    audios = client_voices(n_slots, n_all * 0.25, 20, samplerate)
+    want = want_launches(hp)
+    streams, tick_counts = {}, {}
     for pipelined in modes:
         sched = SlotScheduler(engine, n_slots, f0method=f0method,
-                              pipelined=pipelined, **STREAM)
+                              pipelined=pipelined,
+                              **dict(STREAM, samplerate=samplerate))
         bf = sched.block_frame
         slots = [sched.attach() for _ in range(n_slots)]
         got = [[] for _ in slots]
@@ -1217,6 +1281,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
             if counts != want:
                 raise AssertionError(f"N={n_slots} tick {i}: launches "
                                      f"{counts}, expected {want}")
+            tick_counts.update(counts)
             reset_launch_counts()
             if not pipelined:   # reading the spans waits for the device
                 spans.append(timing.read())
@@ -1255,7 +1320,9 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
                   for k in spans[-1]} if spans else None)
         wall = float(np.median(walls))
         say(phase, mode="pipelined" if pipelined else "serial",
-            slots=n_slots, model="v2/48k random weights", f0method=f0method,
+            slots=n_slots, model=f"{kind_name(*kind)} random weights",
+            f0method=f0method if use_f0 else None, samplerate=samplerate,
+            levels=len(hp.model.upsample_rates),
             index_rows=10000, block_s=0.25, ticks=n_timed,
             tick_wall_ms_median=wall,
             tick_wall_ms_p90=float(np.percentile(walls, 90)),
@@ -1264,7 +1331,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
             ms_per_stream_block=run_ms / n_timed / n_slots,
             stage_ms=split,
             stage_ms_sum=float(sum(split.values())) if split else None,
-            launches_per_tick=want,
+            launches_per_tick=dict(tick_counts),
             no_host_wait_between_upload_and_fetch=True,
             profiled_ticks=n_profiled if busy else 0,
             device_busy_ms_per_tick=(busy / n_profiled if busy else None),
@@ -1276,7 +1343,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
             underruns=stats["underruns"],
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if len(modes) < 2:
-        return want
+        return tick_counts
     # the two timed runs drew the same noise (the generator is seeded with
     # the graph's step), so they differ only by what differs between any
     # two runs on the card: cuDNN's default algorithm for the decoder's
@@ -1288,9 +1355,10 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
         raise AssertionError(f"N={n_slots}: the pipelined streams differ "
                              f"from the serial ones by {diff} > 1e-5")
     say("pipelined_against_serial_timed_runs", slots=n_slots,
+        model=kind_name(*kind),
         samples_per_slot=int(streams[True][0].shape[0]), max_abs_diff=diff,
         limit=1e-5, delivered="one tick later, the last block by flush()")
-    return want
+    return tick_counts
 
 
 def pipelined_exact(tmp, n_slots=4, n_blocks=5):
@@ -1371,18 +1439,22 @@ def serving_single_resblock(tmp, n_slots=4, n_ticks=3):
 def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2,
                              f0method="rmvpe", n_own=None,
                              fed_and_churn=True,
-                             phase="streams_against_sessions"):
+                             phase="streams_against_sessions",
+                             kind=("v2", 48000, True), samplerate=48000):
     """Phase 13 (F3 with fcpe: the first `n_own` streams, no CPU
-    scheduler, no fed/churn ticks).  Deterministic engines; the scheduler
-    reads a clock that stands still, since the reference sessions run
-    between its ticks."""
+    scheduler, no fed/churn ticks; P3 with another `kind` of model and
+    clients at `samplerate`, as `serving`).  Deterministic engines; the
+    scheduler reads a clock that stands still, since the reference
+    sessions run between its ticks."""
     from tpu_rvc_torch.pipeline.rt import StreamSession
     from tpu_rvc_torch.pipeline.serve import SlotScheduler
 
-    model = os.path.join(tmp, "v2_48k.pth")
-    det = dict(noise_scale=0.0, deterministic=True)
-    kw = dict(f0method=f0method, protect=0.33, **STREAM)
-    audios = client_voices(n_slots, (n_blocks + 2) * 0.25, 50)
+    version, sr, use_f0 = kind
+    model = family_model(tmp, version, sr, use_f0)   # v2/48k: phase 3's
+    det = dict(noise_scale=0.0, deterministic=True, version=version)
+    kw = dict(f0method=f0method, protect=0.33,
+              **dict(STREAM, samplerate=samplerate))
+    audios = client_voices(n_slots, (n_blocks + 2) * 0.25, 50, samplerate)
     sched = SlotScheduler(stream_engine(model, tmp, "cuda", **det), n_slots,
                           clock=still_clock, **kw)
     bf = sched.block_frame
@@ -1421,7 +1493,8 @@ def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2,
                 cpu_got[s].append(out)
         rels = [rel_l2(got[s], np.concatenate(cpu_got[s]).astype(np.float64),
                        f"scheduler slot {s}") for s in range(n_cpu)]
-    say(phase, slots=n_slots, blocks=n_blocks, f0method=f0method,
+    say(phase, slots=n_slots, blocks=n_blocks, model=kind_name(*kind),
+        samplerate=samplerate, f0method=f0method if use_f0 else None,
         own_sessions=n_slots if n_own is None else n_own,
         max_abs_vs_own_session=worst, limit=1e-4,
         sola_margin_min=float(min(margins)), cpu_slots=n_cpu,
@@ -1451,7 +1524,7 @@ def streams_against_sessions(tmp, n_slots=8, n_blocks=8, n_cpu=2,
     new = sched.attach()
     if new != 2:
         raise AssertionError(f"the freed slot is 2, attach gave {new}")
-    newcomer = voice(0.25, seed=70, sr=48000)[:bf]
+    newcomer = voice(0.25, seed=70, sr=samplerate)[:bf]
     sched.submit(new, newcomer)
     sched.tick()
     first = sched.collect(new)
@@ -1654,83 +1727,69 @@ def grads_reach_every_layer(state, batch):
     return len(grads)
 
 
-def infer_args(T=200, seed=12):
+def infer_args(T=200, seed=12, dim=768, use_f0=True):
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
-    return (torch.from_numpy(rng.standard_normal((1, T, 768)).astype(
+    args = (torch.from_numpy(rng.standard_normal((1, T, dim)).astype(
         np.float32)).to(dev), torch.tensor([T], device=dev),
-        torch.tensor([0], device=dev),
-        torch.from_numpy(rng.integers(1, 255, (1, T))).to(dev),
-        torch.from_numpy(rng.uniform(100, 300, (1, T)).astype(
-            np.float32)).to(dev))
+        torch.tensor([0], device=dev))
+    if not use_f0:
+        return args
+    return args + (torch.from_numpy(rng.integers(1, 255, (1, T))).to(dev),
+                   torch.from_numpy(rng.uniform(100, 300, (1, T)).astype(
+                       np.float32)).to(dev))
 
 
-def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3,
-                     n_det=8):
-    """T2: v2/48k at full width, batch 4, segment 17280, bf16 as the preset
-    says: 3 epochs through `run_training` (a checkpoint each), then a
-    resumed run to a 4th; then steps timed one by one on the state of
-    epoch 4, and the live G against the G_*.pth it writes."""
-    from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
-    from tpu_rvc_torch.core.config import hparams_for
-    from tpu_rvc_torch.models.synthesizer import make_synthesizer
-    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+def endless(batcher):
+    e = 0
+    while True:
+        yield from batcher.epoch(e)
+        e += 1
+
+
+def trained_state(exp, hp, use_f0, epochs, what):
+    """The state of the last of `epochs` epochs that training wrote to
+    `exp`, from its latest checkpoint -> (state, its batcher, rows, steps
+    an epoch)."""
     from tpu_rvc_torch.train.data import BucketBatcher, RVCDataset
-    from tpu_rvc_torch.train.loop import (export_reference_g_pth,
-                                          latest_checkpoint,
-                                          load_native_checkpoint,
-                                          run_training)
+    from tpu_rvc_torch.train.loop import (latest_checkpoint,
+                                          load_native_checkpoint)
     from tpu_rvc_torch.train.step import create_train_state
-    from tpu_rvc_torch.utils import timing
 
-    hp = hparams_for("v2", 48000)
     t = hp.train
-    if (t.batch_size, t.segment_size, t.fp16_run) != (4, 17280, True):
-        raise AssertionError(f"v2/48k preset changed: {t}")
-    logs = []
-
-    def log(line):
-        logs.append(line)
-        print(line, flush=True)
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    run_training(exp, hp, total_epochs=3, save_every_epoch=1, name="trained",
-                 log_fn=log, tensorboard=False)
-    three_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    metrics = run_training(exp, hp, total_epochs=4, save_every_epoch=1,
-                           name="trained", log_fn=log, tensorboard=False)
-    resume_s = time.perf_counter() - t0
-    run_counts = dict(launch_counts)
-    no_launches("run_training")
-    if not any("resumed from" in ln and "state_3.pt" in ln for ln in logs):
-        raise AssertionError("the 4th epoch did not resume from state_3.pt")
-    for f in ["trained.pth"] + [f"{k}_{e}.{x}" for e in range(1, 5)
-                                for k, x in (("state", "pt"), ("G", "pth"))]:
-        if not os.path.exists(os.path.join(exp, f)):
-            raise AssertionError(f"{f} was not written")
-    if not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"losses not finite: {metrics}")
-
-    ds = RVCDataset(os.path.join(exp, "filelist.txt"), hp)
+    ds = RVCDataset(os.path.join(exp, "filelist.txt"), hp, if_f0=use_f0)
     batcher = BucketBatcher(ds, t.batch_size, seed=t.seed)
     spe = max(len(ds) // t.batch_size, 1)
-    state = create_train_state(hp, steps_per_epoch=spe)
+    state = create_train_state(hp, steps_per_epoch=spe, use_f0=use_f0)
     epoch = load_native_checkpoint(latest_checkpoint(exp), state)
-    if epoch != 4:
-        raise AssertionError(f"latest checkpoint is of epoch {epoch}")
-    n_grads = grads_reach_every_layer(state, next(batcher.epoch(0)))
-    args = infer_args()
-    state.net_g.infer(*args, deterministic=True)  # fills the stage cache
+    if epoch != epochs:
+        raise AssertionError(f"{what}: latest checkpoint of epoch {epoch}")
+    return state, batcher, len(ds), spe
 
-    def batches():
-        e = 0
-        while True:
-            yield from batcher.epoch(e)
-            e += 1
 
-    it = batches()
+def g_against_pth(hp, use_f0, live, args, path, what):
+    """`live` (the live G's deterministic infer of `args`) against the
+    G_*.pth at `path`, reloaded into a fresh synthesizer -> max abs."""
+    from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
+    from tpu_rvc_torch.models.synthesizer import make_synthesizer
+
+    fresh = make_synthesizer(hp, use_f0=use_f0, device="cuda", seed=1)
+    fresh.load_state_dict(synthesizer_state_from_reference(torch.load(
+        path, map_location="cpu", weights_only=True)["model"]))
+    err = float((live - fresh.infer(*args, deterministic=True)).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{what}: live G against "
+                             f"{os.path.basename(path)}: {err}")
+    return err
+
+
+def timed_steps(state, it, n_warm, n_timed, what):
+    """n_warm + n_timed steps on the batches of `it`, each timed to a
+    synchronize with its spans, the allocator's cache emptied before the
+    timed ones; finite losses, no kernel launched -> figures."""
+    from tpu_rvc_torch.ops.kernels import reset_launch_counts
+    from tpu_rvc_torch.utils import timing
+
     reset_launch_counts()
     walls, host_ms, spans = [], [], []
     for i in range(n_warm + n_timed):
@@ -1749,19 +1808,124 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3,
         if i >= n_warm:
             host_ms.append((t1 - t0) * 1e3)
             walls.append((t2 - t1) * 1e3)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    no_launches(f"{what}: the timed steps")
+    losses = {k: float(v) for k, v in m.items() if v.dim() == 0}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    return dict(
+        step_ms=walls, step_ms_median=float(np.median(walls)),
+        step_ms_p90=float(np.percentile(walls, 90)),
+        step_ms_max=float(np.max(walls)), steps_timed=n_timed,
+        warmup_steps=n_warm,
+        span_ms={k: float(np.median([s[k] for s in spans[n_warm:]]))
+                 for k in spans[-1]},
+        host_batch_ms_median=float(np.median(host_ms)),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        step_peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+        final_losses=losses)
+
+
+def deterministic_replay(state, batch):
+    """The step under `TrainState.deterministic` at the state's precision,
+    twice from one state on one batch: the first searches cuDNN's
+    algorithms for the shape, the second takes them; both give the same
+    losses and parameters bit for bit, finite -> figures."""
+    import copy
+    from tpu_rvc_torch.tools.dist_steps import full_params
+
+    saved = copy.deepcopy({"g": state.net_g.state_dict(),
+                           "d": state.net_d.state_dict(),
+                           "opt_g": state.opt_g.state_dict(),
+                           "opt_d": state.opt_d.state_dict()})
+    step = state.step
+    state.deterministic = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for k in range(2):
+        if k:
+            state.net_g.load_state_dict(saved["g"])
+            state.net_d.load_state_dict(saved["d"])
+            state.opt_g.load_state_dict(saved["opt_g"])
+            state.opt_d.load_state_dict(saved["opt_d"])
+            state.step = step
+        t0 = time.perf_counter()
+        m = state.train_step(batch)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0,
+                     {k: float(v) for k, v in m.items() if v.dim() == 0},
+                     full_params(state)))
+        if not k:
+            reserved_gb = torch.cuda.memory_reserved() / 1e9
+    state.deterministic = False
+    (first_s, losses, params), (second_s, losses2, params2) = runs
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"deterministic step: losses {losses}")
+    differ = [k for k in params if not torch.equal(params[k], params2[k])]
+    if losses2 != losses or differ:
+        raise AssertionError(f"deterministic step replayed: losses {losses} "
+                             f"then {losses2}; {len(differ)} tensors differ")
+    return dict(first_step_s=first_s, second_step_ms=second_s * 1e3,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+                reserved_after_first_gb=reserved_gb,
+                replay_bit_equal=True, batch_shape=list(batch["spec"].shape))
+
+
+def train_full_width(tmp, exp, epochs=2, n_warm=3, n_timed=8, n_profiled=3):
+    """T2: v2/48k at full width, batch 4, segment 17280, bf16 as the preset
+    says: epochs - 1 epochs through `run_training` (a checkpoint each),
+    then a resumed run to the last; then steps timed one by one on the
+    state of the last epoch, one step under the deterministic option
+    replayed bit for bit, and the live G against the G_*.pth it
+    writes."""
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.train.loop import export_reference_g_pth, run_training
+
+    hp = hparams_for("v2", 48000)
+    t = hp.train
+    if (t.batch_size, t.segment_size, t.fp16_run) != (4, 17280, True):
+        raise AssertionError(f"v2/48k preset changed: {t}")
+    logs = []
+
+    def log(line):
+        logs.append(line)
+        print(line, flush=True)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_training(exp, hp, total_epochs=epochs - 1, save_every_epoch=1,
+                 name="trained", log_fn=log, tensorboard=False)
+    straight_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = run_training(exp, hp, total_epochs=epochs, save_every_epoch=1,
+                           name="trained", log_fn=log, tensorboard=False)
+    resume_s = time.perf_counter() - t0
+    run_counts = dict(launch_counts)
+    no_launches("run_training")
+    if not any("resumed from" in ln and f"state_{epochs - 1}.pt" in ln
+               for ln in logs):
+        raise AssertionError(f"epoch {epochs} did not resume from "
+                             f"state_{epochs - 1}.pt")
+    for f in ["trained.pth"] + [f"{k}_{e}.{x}" for e in range(1, epochs + 1)
+                                for k, x in (("state", "pt"), ("G", "pth"))]:
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f"{f} was not written")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"losses not finite: {metrics}")
+
+    state, batcher, _, spe = trained_state(exp, hp, True, epochs, "T2")
+    n_grads = grads_reach_every_layer(state, next(batcher.epoch(0)))
+    args = infer_args()
+    state.net_g.infer(*args, deterministic=True)  # fills the stage cache
+    it = endless(batcher)
+    steps = timed_steps(state, it, n_warm, n_timed, "T2")
+    wall = steps["step_ms_median"]
     three = [next(it) for _ in range(n_profiled)]
     busy, top = device_busy_ms(lambda: [state.train_step(b) for b in three])
+    replay = deterministic_replay(state, three[-1])
     train_counts = {k: run_counts[k] + v for k, v in launch_counts.items()}
     no_launches("the timed training steps")
-    if not all(math.isfinite(float(v)) for k, v in m.items()
-               if v.dim() == 0):
-        raise AssertionError(f"losses not finite: {m}")
-    det = deterministic_steps(state, it, n_det)
-    split = {k: float(np.median([s[k] for s in spans[n_warm:]]))
-             for k in spans[-1]}
-    wall = float(np.median(walls))
 
     # the live G, its cache filled before the optimizer moved its weights
     # in place, against the G_*.pth it writes, reloaded
@@ -1770,69 +1934,37 @@ def train_full_width(tmp, exp, n_warm=3, n_timed=12, n_profiled=3,
     live_launches = dict(launch_counts)
     path = os.path.join(tmp, "G_live.pth")
     export_reference_g_pth(path, state.net_g, 5, state.lr())
-    fresh = make_synthesizer(hp, device="cuda", seed=1)
-    fresh.load_state_dict(synthesizer_state_from_reference(
-        torch.load(path, map_location="cpu", weights_only=True)["model"]))
-    err = float((live - fresh.infer(*args, deterministic=True)).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"live G against its reloaded G_*.pth: {err}")
+    err = g_against_pth(hp, True, live, args, path, "T2")
     say("train", model="v2/48k random init", batch=t.batch_size,
         segment=t.segment_size, precision="bf16 autocast, fp32 params",
-        epochs=4, steps_per_epoch=spe, run_training_3_epochs_s=three_s,
-        resume_4th_epoch_s=resume_s, final_metrics=metrics,
-        step_ms_median=wall, step_ms_p90=float(np.percentile(walls, 90)),
-        step_ms_max=float(np.max(walls)), steps_timed=n_timed,
-        warmup_steps=n_warm,
+        epochs=epochs, steps_per_epoch=spe,
+        run_training_straight_s=straight_s, resume_last_epoch_s=resume_s,
+        final_metrics=metrics, **steps,
         samples_per_s=t.batch_size * t.segment_size / (wall / 1e3),
-        span_ms=split, host_batch_ms_median=float(np.median(host_ms)),
         device_busy_ms_per_step=(busy / n_profiled if busy else None),
         device_busy_share=(busy / n_profiled / wall if busy else None),
         device_ops_per_step=sum(c for _, _, c in top) / n_profiled,
         top_kernels_ms_per_step=[[name[:60], ms / n_profiled,
                                   calls / n_profiled]
                                  for name, ms, calls in top[:10]],
-        peak_mem_gb=peak_gb, peak_reserved_gb=reserved_gb,
-        deterministic_steps=det, kernel_launches_in_training=train_counts,
+        deterministic_step=replay,
+        kernel_launches_in_training=train_counts,
         grads_nonzero=n_grads, live_vs_reloaded_max_abs=err,
         live_infer_launches=live_launches)
     return os.path.join(exp, "trained.pth"), train_counts
 
 
-def deterministic_steps(state, it, n):
-    """n steps of `it` under `TrainState.deterministic`, then the setting
-    put back: their ms, those on a bucket shape this setting meets first
-    (where cuDNN times its algorithms) apart from the rest, and the peak
-    reserved memory, the cache emptied before."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state.deterministic = True
-    ms, first, seen = [], [], set()
-    for _ in range(n):
-        batch = next(it)
-        shape = tuple(batch["spec"].shape)
-        t0 = time.perf_counter()
-        state.train_step(batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        first.append(shape not in seen)
-        seen.add(shape)
-    state.deterministic = False
-    rest = [t for t, f in zip(ms, first) if not f]
-    return {"ms": ms, "ms_new_shape": [t for t, f in zip(ms, first) if f],
-            "ms_median_seen_shape": float(np.median(rest)) if rest else None,
-            "shapes": len(seen),
-            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
-
-
-def train_against_cpu(exp):
-    """T3: one pinned fp32 step (TF32 off) at full width, batch 2 in a
-    200-frame bucket, on the card and on the CPU from the same weights."""
+def train_against_cpu(exp, version="v2", sr=48000,
+                      phase="train_against_cpu"):
+    """T3 (and T6's at v1/32k): one pinned fp32 step (TF32 off) at full
+    width, batch 2 in a 200-frame bucket, on the card and on the CPU from
+    the same weights."""
     import dataclasses
     from tpu_rvc_torch.core.config import hparams_for
     from tpu_rvc_torch.train.data import BucketBatcher, RVCDataset
     from tpu_rvc_torch.train.step import create_train_state
 
-    hp = hparams_for("v2", 48000)
+    hp = hparams_for(version, sr)
     hp = dataclasses.replace(hp, train=dataclasses.replace(
         hp.train, fp16_run=False))
     ds = RVCDataset(os.path.join(exp, "filelist.txt"), hp)
@@ -1855,7 +1987,8 @@ def train_against_cpu(exp):
     if bad:
         raise AssertionError(f"card against CPU step: {bad}; card "
                              f"{got['cuda']}, cpu {got['cpu']}")
-    say("train_against_cpu", precision="fp32, TF32 off", batch=2,
+    say(phase, model=f"{version}/{sr // 1000}k", precision="fp32, TF32 off",
+        batch=2,
         bucket=200, rel_err=rel, card=got["cuda"],
         card_step_s=got["cuda_s"], cpu_step_s=got["cpu_s"])
 
@@ -1976,7 +2109,7 @@ def data_parallel_training(tmp, exp):
         # tests/test_torch_train.py's criterion, after one and five steps
         if not all(spread[n]["beyond_1e6"] < 1e-3 for n in (1, 5)):
             raise AssertionError(f"two one-process runs differ: {spread}")
-        det_ms = deterministic_step_cost(state, batches[-1])
+        det_ms = deterministic_step_cost(state, batches[-1], turns=2)
         del state
         torch.cuda.empty_cache()
         # the unpinned steps: 1e-3 beyond twice what a second run moves
@@ -2792,7 +2925,7 @@ def hp_separation(tmp):
         if not tta:
             dev_out = out
     sep.tta = False
-    ins, voc, host_walls = host_figures(sep, song30, SONG_S)
+    ins, voc, host_walls = host_figures(sep, song30, SONG_S, n_timed=1)
     rels = device_vs_host(dev_out, (ins, voc), "HP5")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2843,7 +2976,7 @@ def deecho_separation(tmp):
         raise AssertionError("DeEcho name: not the reversed DeEcho net")
     dev = DeviceSeparator(sep, group=SEP_GROUP)
     dev_out, counts, figures = separation_figures(dev, song30, SONG_S)
-    ins, voc, host_walls = host_figures(sep, song30, SONG_S)
+    ins, voc, host_walls = host_figures(sep, song30, SONG_S, n_timed=1)
     rels = device_vs_host(dev_out, (ins, voc), "DeEcho")
     cpu = card_vs_cpu(path, song3,
                       lambda s: DeviceSeparator(s, group=SEP_GROUP), "DeEcho")
@@ -2994,7 +3127,7 @@ def separation_phases(tmp):
 # ---------------------------------------------------------------------------
 
 LONG_S = 180.0        # D1: 3 chunks at x_center 60 / x_max 65
-LONG_PEAK_S = 1200.0  # D1: the 20-minute file whose peak memory is read
+LONG_PEAK_S = 600.0   # D1: the 10-minute file whose peak memory is read
 SMALL_GEOMETRY = dict(x_pad=0.5, x_query=1.0, x_center=4.0, x_max=5.0)
 BATCH_ROWS = 8        # D2: 8 x 10 s in a 16 s bucket
 SAME_LSB = 4          # chunk-parallel vs sequential, common-bucket chunks
@@ -3104,7 +3237,7 @@ def long_file(tmp, index):
         run = lambda: vc.vc_single(0, wav, chunk_parallel=True,  # noqa
                                    **kw)[1][1]
         torch.cuda.reset_peak_memory_stats()
-        walls, spans, counts, out = timed_runs(run)
+        walls, spans, counts, out = timed_runs(run, 1)
         check_output(out, n_out, f"chunk-parallel {method}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         if counts != want_launches(hp, calls):
@@ -3157,28 +3290,28 @@ def long_file(tmp, index):
         two_shards_within_lsb=shard_share, two_shards_max_lsb=shard_max,
         two_shards_launches=twice_counts, card_vs_cpu_12s_rel_l2=rel)
 
-    # the peak of a 20-minute file, ROWS_PER_CALL rows a call
-    audio20 = np.resize(audio16, int(LONG_PEAK_S * 16000))
+    # the peak of a 10-minute file, ROWS_PER_CALL rows a call
+    audio_peak = np.resize(audio16, int(LONG_PEAK_S * 16000))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t1 = time.perf_counter()
-    out20 = convert_long(vc.pipeline, 0, audio20, make_mesh(),
-                         f0_method="pm", index=index, index_rate=0.75,
-                         rms_mix_rate=0.25)
-    wall20 = time.perf_counter() - t1
+    out_peak = convert_long(vc.pipeline, 0, audio_peak, make_mesh(),
+                            f0_method="pm", index=index, index_rate=0.75,
+                            rms_mix_rate=0.25)
+    wall_peak = time.perf_counter() - t1
     # one chunk a t_center step (silence_chunk_bounds), without its scan
-    n20 = (audio20.size - 1) // vc.pipeline.t_center + 1
-    calls20 = -(-n20 // ROWS_PER_CALL)
-    if dict(launch_counts) != want_launches(hp, calls20) or \
-            not np.abs(out20).max() > 0:
-        raise AssertionError(f"20-minute file: launches "
-                             f"{dict(launch_counts)}, peak {out20.max()}")
-    say("long_file_peak", input_s=LONG_PEAK_S, chunks=n20,
-        calls=calls20, rows_per_call=ROWS_PER_CALL, wall_s=wall20,
+    n_peak = (audio_peak.size - 1) // vc.pipeline.t_center + 1
+    calls_peak = -(-n_peak // ROWS_PER_CALL)
+    if dict(launch_counts) != want_launches(hp, calls_peak) or \
+            not np.abs(out_peak).max() > 0:
+        raise AssertionError(f"10-minute file: launches "
+                             f"{dict(launch_counts)}, peak {out_peak.max()}")
+    say("long_file_peak", input_s=LONG_PEAK_S, chunks=n_peak,
+        calls=calls_peak, rows_per_call=ROWS_PER_CALL, wall_s=wall_peak,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        output_samples=int(out20.size))
+        output_samples=int(out_peak.size))
 
     # the one-resblock model: K3 on a short chunk-parallel conversion
     rb = device_pipeline(os.path.join(tmp, "v2_48k_rb1.pth"), "cuda",
@@ -3953,6 +4086,281 @@ def family_streaming(tmp, n_warm=3, n_timed=10, n_cpu=8):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases T6, P3 and P4: the model family in training and serving
+# ---------------------------------------------------------------------------
+
+# (version, sr, use_f0, f0 method, the entry point that trains it): v2/40k,
+# the upstream WebUI's default, through its one-click path
+FAMILY_TRAIN = [("v2", 40000, True, "rmvpe", "train_start_all"),
+                ("v1", 32000, True, "pm", "run_training"),
+                ("v1", 48000, False, None, "apps.train"),
+                ("v2", 32000, False, None, "apps.train")]
+FAMILY_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def step_clock(record):
+    """Time every `TrainState.train_step` to a synchronize: (the batch's
+    spec shape, seconds) appended to `record`."""
+    from tpu_rvc_torch.train.step import TrainState
+
+    inner = TrainState.train_step
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(self, batch)
+        torch.cuda.synchronize()
+        record.append((tuple(batch["spec"].shape),
+                       time.perf_counter() - t0))
+        return out
+
+    TrainState.train_step = timed
+    try:
+        yield
+    finally:
+        TrainState.train_step = inner
+
+
+def family_train_kind(tmp, version, sr, use_f0, method, entry, n_warm=3,
+                      n_timed=8):
+    """T6 for one kind: T1's 16 voices prepared at the kind's rate and
+    trained FAMILY_EPOCHS epochs (a checkpoint each) through `entry`;
+    then the last epoch's state: its G against the G_*.pth of that epoch,
+    n_warm + n_timed steps timed one by one, no kernel launched; the small
+    model through `VC.vc_single` (10 s, 6 K1 and 18 K2 a level) and 1 s
+    on the card against the CPU -> the conversion's launches."""
+    import shutil
+    from tpu_rvc_torch.apps.train import main as train_main
+    from tpu_rvc_torch.apps.web import Api
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.models.hubert import hubert_for_version
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.vc import VC
+    from tpu_rvc_torch.train.loop import run_training
+
+    t_kind = time.perf_counter()
+    hp = hparams_for(version, sr)
+    t, dim = hp.train, hp.encoder_dim
+    if (t.batch_size, t.fp16_run) != (4, True):
+        raise AssertionError(f"{version}/{sr} preset changed: {t}")
+    what = kind_name(version, sr, use_f0)
+    tag = f"{version}_{sr // 1000}k{'' if use_f0 else '_nof0'}"
+    raw = os.path.join(tmp, "train_raw")      # T1's voices at 48 kHz
+    exp = os.path.join(tmp, f"family_{tag}")
+    logs, record = [], []
+
+    def log(line):
+        logs.append(line)
+        print(line, flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with step_clock(record):
+        if entry == "train_start_all":
+            Api(hubert_path="random", rmvpe_root=tmp).train_start_all(
+                exp, raw, version, sr, if_f0=int(use_f0), f0_method=method,
+                n_p=4, epochs=FAMILY_EPOCHS, batch_size=t.batch_size,
+                save_every=1, name=tag, log_fn=log)
+        else:
+            f0 = ["--if-f0", str(int(use_f0))] + (
+                ["--f0-method", method] if use_f0 else [])
+            for cmd, args in (
+                    ("preprocess", ["--input-dir", raw, "--sr", str(sr),
+                                    "--workers", "4"]),
+                    ("extract", ["--version", version, "--hubert", "random",
+                                 "--rmvpe-root", tmp] + f0),
+                    ("index", ["--version", version, "--name", tag])):
+                train_main([cmd, "--exp-dir", exp] + args)
+            if entry == "run_training":
+                run_training(exp, hp, total_epochs=FAMILY_EPOCHS,
+                             if_f0=use_f0, save_every_epoch=1, name=tag,
+                             log_fn=log, tensorboard=False)
+            else:
+                train_main(["train", "--exp-dir", exp, "--version", version,
+                            "--sr", str(sr), "--if-f0", str(int(use_f0)),
+                            "--epochs", str(FAMILY_EPOCHS),
+                            "--save-every", "1", "--name", tag])
+    train_s = time.perf_counter() - t0
+    train_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    no_launches(f"{what}: preparing and training")
+    for f in [f"{tag}.pth", f"added_{tag}.tpuidx.npz"] + [
+            f"{k}_{e}.{x}" for e in range(1, FAMILY_EPOCHS + 1)
+            for k, x in (("state", "pt"), ("G", "pth"))]:
+        if not os.path.exists(os.path.join(exp, f)):
+            raise AssertionError(f"{what}: {f} was not written")
+    feat_dir = os.path.join(exp, f"3_feature{dim}")
+    feats = np.load(os.path.join(feat_dir, sorted(os.listdir(feat_dir))[0]))
+    if feats.shape[1] != dim or not np.isfinite(feats).all() or \
+            os.path.isdir(os.path.join(exp, "2a_f0")) != use_f0:
+        raise AssertionError(f"{what}: features {feats.shape}, f0 dir "
+                             f"{os.path.isdir(os.path.join(exp, '2a_f0'))}")
+    first_step_s = {}
+    for shape, sec in record:
+        first_step_s.setdefault("x".join(map(str, shape)), sec)
+
+    # the last epoch's state: its G against that epoch's G_*.pth, then
+    # steps timed one by one on it
+    state, batcher, rows, spe = trained_state(exp, hp, use_f0,
+                                              FAMILY_EPOCHS, what)
+    args = infer_args(dim=dim, use_f0=use_f0)
+    live = state.net_g.infer(*args, deterministic=True)
+    g_err = g_against_pth(hp, use_f0, live, args, os.path.join(
+        exp, f"G_{FAMILY_EPOCHS}.pth"), what)
+    steps = timed_steps(state, endless(batcher), n_warm, n_timed, what)
+    del state, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the small model converts through the kernels
+    model = os.path.join(exp, f"{tag}.pth")
+    convert = method or "pm"
+    wav = os.path.join(tmp, "voice_10s.wav")
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    vc.vc_single(0, wav, f0_method=convert)                 # warm-up
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    _, (sr_out, audio) = vc.vc_single(0, wav, f0_method=convert)
+    conv_ms = (time.perf_counter() - t1) * 1e3
+    counts = dict(launch_counts)
+    check_output(audio, expected_len(160000, vc.x_pad, hp.data.hop_length,
+                                     sr), f"{what}: the trained model")
+    want = want_launches(hp)
+    if sr_out != sr or counts != want:
+        raise AssertionError(f"{what}: trained model at {sr_out} Hz, "
+                             f"launches {counts}, want {want}")
+    rel = family_against_cpu(model, version, convert, use_f0,
+                             {"cuda": vc._hubert,
+                              "cpu": hubert_for_version(version, "cpu")},
+                             tmp)
+    del vc
+    if (version, sr) == ("v1", 32000):
+        train_against_cpu(exp, version, sr, phase="family_train_against_cpu")
+    shutil.rmtree(exp)
+    say("family_train", kind=what, entry=entry, f0_method=method,
+        batch=t.batch_size, segment=t.segment_size,
+        precision="bf16 autocast, fp32 params", epochs=FAMILY_EPOCHS,
+        rows=rows, steps_per_epoch=spe, prepare_and_train_s=train_s,
+        steps_in_training=len(record), first_step_s_by_bucket=first_step_s,
+        train_peak_reserved_gb=train_reserved_gb, **steps,
+        live_g_vs_g_pth_max_abs=g_err, conversion_wall_ms=conv_ms,
+        launches=counts, card_vs_cpu_rel_l2=rel,
+        seconds=time.perf_counter() - t_kind)
+    return counts
+
+
+def family_training(tmp):
+    """T6: the kinds of FAMILY_TRAIN -> the launches of each trained
+    model's conversion."""
+    t_start = time.perf_counter()
+    launches = {kind_name(v, sr, f0): family_train_kind(tmp, v, sr, f0, m, e)
+                for v, sr, f0, m, e in FAMILY_TRAIN}
+    phase_seconds("T6", t_start)
+    return launches
+
+
+# (kind, f0 method, client rate, slot counts, modes, slots checked
+# against their own sessions)
+FAMILY_SERVE = [(("v2", 40000, True), "rmvpe", 48000, (1, 4, 8),
+                 (False, True), 4),
+                (("v1", 32000, True), "pm", 32000, (8,), (False,), 8),
+                (("v2", 32000, False), "pm", 48000, (4,), (False,), 4)]
+
+
+def family_serving(tmp):
+    """P3: `SlotScheduler` over random-weight models of other kinds, the
+    index of the version's width, 0.25 s blocks (`serving`: 3 warm-up and
+    10 timed ticks, launches each tick, busy share, peak memory, no
+    underrun), then each stream against its own `StreamSession` on the
+    card and two against a scheduler on the CPU
+    (`streams_against_sessions`) -> the launches of a tick by kind."""
+    t_start = time.perf_counter()
+    launches = {}
+    for kind, method, rate, slot_counts, modes, n_own in FAMILY_SERVE:
+        for n in slot_counts:
+            got = serving(tmp, n, n_warm=3, n_timed=10, f0method=method,
+                          modes=modes, phase="family_serving", kind=kind,
+                          samplerate=rate)
+        streams_against_sessions(tmp, n_own, n_blocks=6, n_cpu=2,
+                                 f0method=method, fed_and_churn=False,
+                                 phase="family_streams_against_sessions",
+                                 kind=kind, samplerate=rate)
+        launches[kind_name(*kind)] = got
+    phase_seconds("P3", t_start)
+    return launches
+
+
+def separated_vocal_into_40k(tmp):
+    """P4: the web app's chain from separation to conversion: the port's
+    `Api.uvr_convert` of the 30 s 44.1 kHz song with U1's HP5-style net,
+    then `Api.infer_convert` of its vocal with P1's v2/40k model (pm),
+    against `DeviceSeparator.separate` and `VC.vc_single` called here
+    (1 LSB each), the output's length at 40 kHz, 6 K1 and 72 K2 ->
+    the conversion's launches."""
+    import shutil
+    from tpu_rvc_torch.apps.web import Api
+    from tpu_rvc_torch.audio.io import load_audio, save_wav
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
+    from tpu_rvc_torch.pipeline.uvr5 import DeviceSeparator, load_separator
+    from tpu_rvc_torch.pipeline.vc import VC
+
+    t_start = time.perf_counter()
+    hp = hparams_for("v2", 40000)
+    weights = os.path.join(tmp, "p4_weights")
+    os.makedirs(weights, exist_ok=True)
+    model = family_model(tmp, "v2", 40000, True)
+    shutil.copy(model, os.path.join(weights, "v2_40k.pth"))
+    sep_model = os.path.join(tmp, "HP5_random.pth")
+    song30 = write_song(tmp, SONG_S)
+    out = os.path.join(tmp, "p4")
+    api = Api(weight_root=weights, hubert_path="random", rmvpe_root=tmp)
+    t0 = time.perf_counter()
+    stems = api.uvr_convert(sep_model, song30, ins_root=out,
+                            vocal_root=out)
+    sep_ms = (time.perf_counter() - t0) * 1e3
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    conv = api.infer_convert(0, stems["vocal"], f0_method="pm",
+                             model_name="v2_40k.pth",
+                             output_path=os.path.join(out, "converted.wav"))
+    conv_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(launch_counts)
+    want = want_launches(hp)
+    if counts != want or conv["sr"] != 40000:
+        raise AssertionError(f"P4: launches {counts}, want {want}; rate "
+                             f"{conv['sr']}")
+
+    # the same through the library, called here
+    _, voc, voc_sr = DeviceSeparator(load_separator(sep_model)).separate(
+        song30)
+    direct_vocal = os.path.join(tmp, "p4_vocal_direct.wav")
+    save_wav(direct_vocal, voc, voc_sr)
+    vocal_lsb = int16_lsb(read_stereo_wav(stems["vocal"])[0],
+                          read_stereo_wav(direct_vocal)[0], "P4 vocal", 1)
+    vc = VC(rmvpe_root=tmp, hubert_path="random")
+    vc.get_vc(model)
+    _, (_, direct) = vc.vc_single(0, direct_vocal, 0, "pm", None, 0.66, 3,
+                                  0, 1.0, 0.33)
+    got = read_stereo_wav(conv["output"])[0][:, 0]
+    n16 = load_audio(stems["vocal"], 16000).shape[0]
+    check_output(got, expected_len(n16, vc.x_pad, hp.data.hop_length,
+                                   40000), "P4 conversion")
+    conv_lsb = int16_lsb(got, direct, "P4 conversion", 1)
+    say("separated_vocal_into_40k", song_s=SONG_S, separator="HP5-style",
+        model="v2/40k random weights", f0_method="pm",
+        uvr_convert_ms=sep_ms, infer_convert_ms=conv_ms, vocal_sr=voc_sr,
+        vocal_vs_direct_lsb=vocal_lsb, output_samples=int(got.shape[0]),
+        sr=conv["sr"], conversion_vs_direct_lsb=conv_lsb, launches=counts)
+    phase_seconds("P4", t_start)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3981,14 +4389,14 @@ def main():
             raise AssertionError(f"launches with rmvpe {rmvpe_counts}")
         stream_counts = streaming(tmp)
         stream_rb_counts = streaming_single_resblock(tmp)
-        streaming_against_cpu(tmp)
-        serve_counts = serving(tmp, BATCH_N, n_warm=3, n_timed=20)
+        streaming_against_cpu(tmp, n_blocks=6)
+        serve_counts = serving(tmp, BATCH_N, n_warm=3, n_timed=10)
         for n in (1, 4):
-            if serving(tmp, n, n_warm=3, n_timed=10) != serve_counts:
+            if serving(tmp, n, n_warm=3, n_timed=5) != serve_counts:
                 raise AssertionError(f"launches a tick differ at N={n}")
         serve_rb_counts = serving_single_resblock(tmp)
         pipelined_exact(tmp)
-        streams_against_sessions(tmp)
+        streams_against_sessions(tmp, n_blocks=6)
         noise_reduction(tmp)
         tcp_loopback(tmp)
         exp = train_prepare(tmp)
@@ -3996,6 +4404,7 @@ def main():
         train_against_cpu(exp)
         dp_counts = data_parallel_training(tmp, exp)
         trained_counts = trained_model_converts(tmp, model)
+        family_train_counts = family_training(tmp)
         with contextlib.chdir(tmp):   # FCPE finds assets/fcpe/fcpe.pt here
             fcpe_counts = fcpe_phases(tmp, main_counts)
         host_f0_counts = host_f0_conversions(tmp)
@@ -4012,6 +4421,8 @@ def main():
         mcd_card(against_cpu_floats)
         family_counts = family_offline(tmp)
         family_stream_counts = family_streaming(tmp)
+        family_serve_counts = family_serving(tmp)
+        uvr_40k_counts = separated_vocal_into_40k(tmp)
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
@@ -4034,6 +4445,11 @@ def main():
                                 for k, c in family_counts.items()}
         e["family_stream_launches"] = {
             k: c[e["name"]] for k, c in family_stream_counts.items()}
+        e["family_trained_model_launches"] = {
+            k: c[e["name"]] for k, c in family_train_counts.items()}
+        e["family_tick_launches"] = {
+            k: c[e["name"]] for k, c in family_serve_counts.items()}
+        e["uvr_into_40k_launches"] = uvr_40k_counts[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

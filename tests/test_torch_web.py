@@ -662,3 +662,84 @@ def test_serve_http_on_loopback(files, monkeypatch):
             servers[0].server_close()
         thread.join(10)
     assert not thread.is_alive()
+
+
+# the SMALL_SYNTH model at v2/40k's decoder geometry (its `.pth` config)
+SMALL_40K = dict(SMALL_SYNTH, upsample_rates=(10, 10, 2, 2),
+                 upsample_kernel_sizes=(16, 16, 4, 4), sr=40000)
+SMALL_40K_CONFIG = SMALL_CONFIG[:12] + [[10, 10, 2, 2], 64, [16, 16, 4, 4],
+                                        2, 16, 40000]
+
+
+def test_separated_vocal_into_a_40k_model_matches_jax(files, tmp_path):
+    """The web app's chain from separation to conversion: `uvr_convert`
+    of a 1 s 44.1 kHz mix with a narrow DeEcho net, then `infer_convert`
+    of its vocal with a small v2/40k model, through the port's Api and
+    tpu_rvc's: both stems and the converted file within 1 LSB, the
+    output at 40 kHz, 400 samples a 10 ms frame; the port's output is its
+    own separator's vocal through its `VC.vc_single`."""
+    from tpu_rvc_torch.ckpt.uvr5_loader import random_deecho_reference_state
+    from tpu_rvc_torch.pipeline import uvr5
+    from tpu_rvc_torch.pipeline import vc as vc_module
+
+    net = seeded(Synthesizer, 95, **SMALL_40K)
+    with torch.no_grad():
+        for up in net.dec.ups:        # as tests/test_torch_presets.py
+            up.weight.mul_(30.0)
+    sd = reference_state(net, 96)
+    os.makedirs(tmp_path / "weights")
+    save_pth({"weight": {k: w.astype(np.float16) for k, w in sd.items()},
+              "config": SMALL_40K_CONFIG, "sr": "40k", "f0": 1,
+              "version": "v2", "info": "40k"},
+             str(tmp_path / "weights" / "m40.pth"))
+    sep_model = str(tmp_path / "VR-DeEchoNormal_tiny.pth")
+    torch.save(random_deecho_reference_state(5, 1344, nout=8, nout_lstm=16),
+               sep_model)
+    t = np.arange(44100) / 44100
+    mix = (0.3 * np.sin(2 * np.pi * 220 * t) * (0.6 + 0.4 * np.sin(
+        2 * np.pi * 3 * t)) + 0.1 * np.sin(2 * np.pi * 1320 * t)
+        + 0.02 * np.random.default_rng(97).standard_normal(t.size))
+    save_wav(str(tmp_path / "song.wav"), mix.astype(np.float32), 44100)
+    roots = dict(weight_root=str(tmp_path / "weights"),
+                 index_root=str(tmp_path), uvr5_root=str(tmp_path))
+    outs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hubert_loader, "load_hubert_base",
+                   lambda path, version="v2", device=None: files["hub"])
+        mp.setattr(jax_hubert_loader, "load_hubert_base",
+                   lambda path, version="v2": files["jax_hub"])
+        deterministic(mp, VC)
+        deterministic(mp, JaxVC)
+        for tag, api in (("port", web.Api(**roots, device="cpu")),
+                         ("jax", jax_web.Api(**roots))):
+            stems = api.uvr_convert(sep_model, str(tmp_path / "song.wav"),
+                                    ins_root=str(tmp_path / tag / "ins"),
+                                    vocal_root=str(tmp_path / tag / "voc"))
+            conv = api.infer_convert(
+                0, stems["vocal"], f0_method="pm", rms_mix_rate=0.25,
+                model_name="m40.pth",
+                output_path=str(tmp_path / tag / "out.wav"))
+            outs[tag] = (stems, conv, api)
+    for stem in ("instrument", "vocal"):
+        a, sr = read_int16(outs["port"][0][stem])
+        b, jsr = read_int16(outs["jax"][0][stem])
+        assert sr == jsr == 44100 and a.shape == b.shape
+        assert int(np.abs(a.astype(int) - b).max()) <= LSB, stem
+    a, sr = read_int16(outs["port"][1]["output"])
+    b, jsr = read_int16(outs["jax"][1]["output"])
+    assert sr == jsr == outs["port"][1]["sr"] == 40000
+    api = outs["port"][2]
+    L_true = 16000 + 2 * int(16000 * api._vc.x_pad)
+    L = vc_module._bucket(L_true)
+    frames = min(L_true // 160, L // 160, vc_module._feat_frames(L))
+    assert a.shape == b.shape == (frames * 400 - 2 * 40000 * api._vc.x_pad,)
+    assert np.abs(a).max() > 1000
+    assert int(np.abs(a.astype(int) - b).max()) <= LSB
+    _, voc, vsr = uvr5.load_separator(sep_model, device="cpu").separate(
+        str(tmp_path / "song.wav"))
+    save_wav(str(tmp_path / "voc_lib.wav"), voc, vsr)
+    assert np.array_equal(read_int16(outs["port"][0]["vocal"])[0],
+                          read_int16(str(tmp_path / "voc_lib.wav"))[0])
+    _, (_, direct) = api._vc.vc_single(0, outs["port"][0]["vocal"], 0, "pm",
+                                       None, 0.66, 3, 0, 0.25, 0.33)
+    assert np.array_equal(a, direct)

@@ -56,6 +56,9 @@ def cudnn_autotune():
         cudnn.benchmark = saved
 
 
+SEARCH_LIMIT = 3   # cuDNN algorithms timed a convolution (PyTorch's default: 10)
+
+
 @contextlib.contextmanager
 def deterministic_math():
     """Run-to-run reproducible training math on the card: cuDNN held to
@@ -67,14 +70,21 @@ def deterministic_math():
     80GB HBM3 at 700 W (`tools/determinism_probe.py`).  The port's own differentiable code
     has no atomic adds on the training path (the spectrogram's frames,
     `ops/stft.py`; the attention's band, `nn/attention.py`), so PyTorch's
-    `use_deterministic_algorithms` is not needed."""
+    `use_deterministic_algorithms` is not needed.  The search times at
+    most SEARCH_LIMIT algorithms a convolution (`cudnn.benchmark_limit`):
+    on that card a new batch shape's first step took 4.2-5.9 s in fp32
+    and 15.6-22.8 s in bf16 at 3, 10.5-16.5 s and 20.1-43.4 s at 10
+    (`determinism_probe --cost`, one call).  The limit does not bound the
+    search's memory: in fp32 it reserves what the card has free while it
+    runs, at either limit."""
     cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
+    saved = cudnn.deterministic, cudnn.benchmark, cudnn.benchmark_limit
     cudnn.deterministic = cudnn.benchmark = True
+    cudnn.benchmark_limit = SEARCH_LIMIT
     try:
         yield
     finally:
-        cudnn.deterministic, cudnn.benchmark = saved
+        cudnn.deterministic, cudnn.benchmark, cudnn.benchmark_limit = saved
 
 
 _constants = {}

@@ -22,7 +22,10 @@ under each setting, in turns.  A setting is a set of switches:
               when `cudnn` or `algorithms` is on) instead of taking its
               heuristic's pick;
   step        the training step's own setting (`train/step.py`
-              `TrainState.deterministic`), the others left as they are.
+              `TrainState.deterministic`), the others left as they are;
+  limit10     with `step`: the search times 10 algorithms a convolution
+              (PyTorch's default) instead of `core/device.py`'s
+              SEARCH_LIMIT.
 
 Each child takes the five steps twice from the seed, the second run's
 state then times `--timed` more steps on the unpinned batch.  Prints
@@ -40,11 +43,26 @@ setting, torch.profiler's device time a step by kernel, and by
 convolution operator and input shapes, over 3 steps, and a line that
 sets each setting's kernels and convolutions against `default`'s (the
 largest differences first).  `--against DIR` runs, in each turn, the
-default step of the checkout in DIR (another version of this package,
-its own probe's child) as well, first in even turns and last in odd
-ones, and prints each setting's median step ms over DIR's in the same
-turn: the ratios, their median and quartiles.  Then the card's name and
-power limit.  Needs a CUDA card.
+default step of the checkout in DIR (this file's child, run by path
+with DIR's package on the path) as well, first in even turns and last
+in odd ones, and prints each setting's median step ms over DIR's in the
+same turn: the ratios, their median and quartiles.  Then the card's name
+and power limit.  Needs a CUDA card.
+
+    python3 -m tpu_rvc_torch.tools.determinism_probe --cost [--fp32]
+        [--runs 10] [--timed 6] [--settings default step] [--against DIR]
+
+`--cost` measures instead what the deterministic step costs as the
+presets train (bf16 autocast; fp32 with `--fp32`): each child builds
+v2/48k (segment 17280) and v2/40k (segment 12800) from seed 7 and takes,
+for each of COST_SHAPES (a preset, the batch size, the bucket's frames),
+one step on the new shape (its seconds, the peak reserved memory and the
+reserved memory after it, the allocator's cache emptied before),
+COST_WARM more and `--timed` timed ones (their median ms and peak
+reserved memory).  Prints a line a setting and shape, then with
+`--against DIR` each setting's ratios to DIR's median ms of the same
+turn and shape: by shape, by batch size, and over all, median and
+quartiles.
 """
 
 from __future__ import annotations
@@ -66,6 +84,7 @@ SETTINGS = {
     "algorithms": ("algorithms",),
     "cudnn_timed": ("cudnn", "timed"),
     "step": ("step",),
+    "step_limit10": ("step", "limit10"),
 }
 LENGTHS = (200, 163, 200, 110)
 SNAPSHOTS = (1, 5)
@@ -122,6 +141,21 @@ def _conv_table(prof, n_steps: int):
     return rows
 
 
+def switch_on(setting: str) -> set:
+    """Set the process-wide switches of `setting` -> its switches."""
+    import torch
+
+    on = set(SETTINGS[setting])
+    if "algorithms" in on:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = "cudnn" in on
+    torch.backends.cudnn.benchmark = "timed" in on
+    if "limit10" in on:
+        from tpu_rvc_torch.core import device
+        device.SEARCH_LIMIT = 10
+    return on
+
+
 def child(setting: str, n_timed: int, out: str, profile: bool) -> None:
     import dataclasses
 
@@ -133,11 +167,7 @@ def child(setting: str, n_timed: int, out: str, profile: bool) -> None:
                                                 run_steps)
     from tpu_rvc_torch.train.step import create_train_state
 
-    on = set(SETTINGS[setting])
-    if "algorithms" in on:
-        torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = "cudnn" in on
-    torch.backends.cudnn.benchmark = "timed" in on
+    on = switch_on(setting)
     hp = hparams_for("v2", 48000)
     hp = dataclasses.replace(hp, train=dataclasses.replace(
         hp.train, fp16_run=False))
@@ -219,67 +249,126 @@ def kernel_delta(table, base, top: int = 15):
                     for n, a, b, ca, cb in rows[:top]]}
 
 
-def _against_child(root: str, n_timed: int, tmp: str, i: int):
-    """The `default` setting of the checkout in `root`, by its own probe
-    -> what its child saved."""
-    import torch
-
-    out = os.path.join(tmp, f"against_{i}.pt")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
-    subprocess.run([sys.executable, "-m",
-                    "tpu_rvc_torch.tools.determinism_probe", "--timed",
-                    str(n_timed), "--child", "default", out],
-                   env=env, cwd=root, check=True, timeout=900)
-    return torch.load(out, weights_only=False)
+COST_SHAPES = (("v2", 48000, 4, 200), ("v2", 48000, 8, 300),
+               ("v2", 40000, 4, 250), ("v2", 40000, 8, 150))
+COST_WARM = 2
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(
-        prog="python3 -m tpu_rvc_torch.tools.determinism_probe")
-    p.add_argument("--runs", type=int, default=2)
-    p.add_argument("--timed", type=int, default=10)
-    p.add_argument("--settings", nargs="+", default=list(SETTINGS),
-                   choices=list(SETTINGS))
-    p.add_argument("--profile", action="store_true")
-    p.add_argument("--against", metavar="DIR")
-    p.add_argument("--child", nargs=2, metavar=("SETTING", "OUT"),
-                   help=argparse.SUPPRESS)
-    args = p.parse_args(argv)
-    if args.child:
-        child(args.child[0], args.timed, args.child[1], args.profile)
-        return 0
+def cost_child(setting: str, n_timed: int, out: str, fp32: bool) -> None:
+    """COST_SHAPES under `setting`, by the package on the path: only names
+    every version of it since the deterministic option has (`run_steps`
+    times to a synchronize)."""
+    import dataclasses
+    import gc
+    import time
 
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("determinism_probe: CUDA is not available", file=sys.stderr)
-        return 2
-    results = {s: [] for s in args.settings}
-    against = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for i in range(args.runs):
-            if args.against and i % 2 == 0:
-                against.append(_against_child(args.against, args.timed,
-                                              tmp, i))
-            for setting in args.settings:
-                env = dict(os.environ)
-                if "cublas" in SETTINGS[setting]:
-                    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-                else:
-                    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
-                out = os.path.join(tmp, f"{setting}_{i}.pt")
-                cmd = [sys.executable, "-m",
-                       "tpu_rvc_torch.tools.determinism_probe", "--timed",
-                       str(args.timed), "--child", setting, out]
-                if args.profile and i == 0:
-                    cmd.append("--profile")
-                subprocess.run(cmd, env=env, check=True, timeout=900)
-                results[setting].append(torch.load(out, weights_only=False))
-            if args.against and i % 2 == 1:
-                against.append(_against_child(args.against, args.timed,
-                                              tmp, i))
+    from tpu_rvc_torch.core.config import hparams_for
+    from tpu_rvc_torch.tools.dist_steps import make_batch, run_steps
+    from tpu_rvc_torch.train.step import create_train_state
+
+    on = switch_on(setting)
+    rows, state, preset = [], None, None
+    for i, (version, sr, b, T) in enumerate(COST_SHAPES):
+        if (version, sr) != preset:
+            preset, state = (version, sr), None
+            gc.collect()
+            hp = hparams_for(version, sr)
+            if fp32:
+                hp = dataclasses.replace(hp, train=dataclasses.replace(
+                    hp.train, fp16_run=False))
+            state = create_train_state(hp, seed=7, device="cuda")
+            state.deterministic = "step" in on
+        batch = make_batch(state.hp, [T - 17 * (j % 3) for j in range(b)],
+                           40 + i, T)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_steps(state, [batch])
+        first_s = time.perf_counter() - t0
+        first_gb = torch.cuda.max_memory_reserved() / 1e9
+        after_gb = torch.cuda.memory_reserved() / 1e9
+        run_steps(state, [batch] * COST_WARM)
+        torch.cuda.reset_peak_memory_stats()
+        _, ms, _ = run_steps(state, [batch] * n_timed)
+        rows.append({"shape": f"{version}/{sr // 1000}k b{b} T{T}",
+                     "segment": state.hp.train.segment_size,
+                     "first_step_s": first_s,
+                     "first_peak_reserved_gb": first_gb,
+                     "reserved_after_first_gb": after_gb,
+                     "warm_peak_reserved_gb":
+                         torch.cuda.max_memory_reserved() / 1e9,
+                     "median_ms": float(np.median(ms)), "ms": ms})
+    torch.save(rows, out)
+
+
+def _run_child(setting: str, args, out: str, root=None,
+               profile: bool = False):
+    """One child: this file run by path, with this tree's package or
+    (root) the checkout in root's on the path -> what it saved."""
+    import torch
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "..")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(root or here))
+    if "cublas" in SETTINGS[setting]:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    else:
+        env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    cmd = [sys.executable, os.path.abspath(__file__), "--timed",
+           str(args.timed), "--child", setting, out]
+    cmd += [f for f, on in (("--cost", args.cost), ("--fp32", args.fp32),
+                            ("--profile", profile)) if on]
+    subprocess.run(cmd, env=env, cwd=os.path.abspath(root or here),
+                   check=True, timeout=900)
+    return torch.load(out, weights_only=False)
+
+
+def _spread(v):
+    import numpy as np
+
+    return {"median": float(np.median(v)),
+            "quartiles": [float(np.percentile(v, 25)),
+                          float(np.percentile(v, 75))],
+            "n": len(v)}
+
+
+def print_cost(results, against, root) -> None:
+    """The lines `--cost` describes."""
+    named = dict(results, **({"against": against} if against else {}))
+    for s, turns in named.items():
+        for k, row in enumerate(turns[0]):
+            print(json.dumps({
+                "setting": s, "shape": row["shape"],
+                "segment": row["segment"], **{
+                    key: [t[k][key] for t in turns]
+                    for key in ("first_step_s", "first_peak_reserved_gb",
+                                "reserved_after_first_gb",
+                                "warm_peak_reserved_gb", "median_ms")}}),
+                flush=True)
+    if not against:
+        return
+    for s, turns in results.items():
+        by_shape, by_batch, every = {}, {}, []
+        for turn, base in zip(turns, against):
+            for row, ref in zip(turn, base):
+                r = row["median_ms"] / ref["median_ms"]
+                by_shape.setdefault(row["shape"], []).append(r)
+                by_batch.setdefault(row["shape"].split()[1], []).append(r)
+                every.append(r)
+        print(json.dumps({
+            "setting": s, "against": os.path.abspath(root),
+            "ratio": _spread(every),
+            "by_batch": {k: _spread(v) for k, v in by_batch.items()},
+            "by_shape": {k: dict(_spread(v), each=v)
+                         for k, v in by_shape.items()}}), flush=True)
+
+
+def print_runs(results, against, args) -> None:
+    """The lines of the reproducibility runs."""
     for setting, runs in results.items():
         first = runs[0]
         line = {
@@ -311,22 +400,69 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels_against_default": deltas}), flush=True)
     if against:
         base = [r["median_timed_ms"] for r in against]
-        ratios = {s: [r["median_timed_ms"] / b for r, b in zip(runs, base)]
-                  for s, runs in results.items()}
         print(json.dumps({
             "against": os.path.abspath(args.against),
             "against_median_step_ms": base,
             "ratio_to_against": {
-                s: {"each": v, "median": float(np.median(v)),
-                    "quartiles": [float(np.percentile(v, 25)),
-                                  float(np.percentile(v, 75))]}
-                for s, v in ratios.items()}}), flush=True)
-    card = subprocess.run(
+                s: dict(_spread(v), each=v) for s, v in (
+                    (s, [r["median_timed_ms"] / b
+                         for r, b in zip(runs, base)])
+                    for s, runs in results.items())}}), flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python3 -m tpu_rvc_torch.tools.determinism_probe")
+    p.add_argument("--runs", type=int, default=2)
+    p.add_argument("--timed", type=int, default=10)
+    p.add_argument("--settings", nargs="+", default=list(SETTINGS),
+                   choices=list(SETTINGS))
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--against", metavar="DIR")
+    p.add_argument("--cost", action="store_true")
+    p.add_argument("--fp32", action="store_true")
+    p.add_argument("--child", nargs=2, metavar=("SETTING", "OUT"),
+                   help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.child and args.cost:
+        cost_child(args.child[0], args.timed, args.child[1], args.fp32)
+        return 0
+    if args.child:
+        child(args.child[0], args.timed, args.child[1], args.profile)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("determinism_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    results = {s: [] for s in args.settings}
+    against = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(args.runs):
+            if args.against and i % 2 == 0:
+                against.append(_run_child("default", args, os.path.join(
+                    tmp, f"against_{i}.pt"), args.against))
+            for s in args.settings:
+                results[s].append(_run_child(
+                    s, args, os.path.join(tmp, f"{s}_{i}.pt"),
+                    profile=args.profile and i == 0 and not args.cost))
+            if args.against and i % 2 == 1:
+                against.append(_run_child("default", args, os.path.join(
+                    tmp, f"against_{i}.pt"), args.against))
+    if args.cost:
+        print_cost(results, against, args.against)
+    else:
+        print_runs(results, against, args)
+    print(card_line())
+    return 0
+
+
+def card_line() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(card)
-    return 0
 
 
 if __name__ == "__main__":

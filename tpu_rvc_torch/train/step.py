@@ -136,9 +136,10 @@ class TrainState:
     `deterministic` (off by default): each step runs under
     `core/device.py` `deterministic_math`, so two runs from one seed in
     one process take the same steps bit for bit on a card (the CPU's
-    steps are so without it).  Off by default: cuDNN then times its
-    algorithms for each new shape and keeps their workspace, at the step
-    time and memory `ROADMAP.md` C.1 records."""
+    steps are so without it).  Off by default: under it cuDNN times its
+    algorithms for each new batch shape, 14-40 s in bf16 on an NVIDIA
+    H100 80GB HBM3 at 700 W, and the step costs 1.06x the default's
+    (`ROADMAP.md` C.1)."""
 
     def __init__(self, hp: HParams, net_g: Synthesizer,
                  net_d: MultiPeriodDiscriminator, steps_per_epoch: int = 100,
