@@ -182,8 +182,8 @@ Phases, one line of output each (any failure exits non-zero):
      44.1 kHz mix (the voice, two tones, noise), TTA off and on, 1 warm-up
      + 3 timed: wall ms, CUDA-event spans (resample, stft, net, istft),
      the profiler's busy ms and share, windows and the window group,
-     FlopCounterMode's operations and TFLOP/s beside the fp32 peak, peak
-     memory, no K1/K2/K3 launch; the host path (UVR5Separator, 1 warm-up
+     the graph's FLOPs (`last_graph_flops`) and TFLOP/s beside the fp32
+     peak, peak memory, no K1/K2/K3 launch; the host path (UVR5Separator, 1 warm-up
      + 1 timed) and device
      against host (relative L2 < 0.05); a 3-minute mix's peak memory; 3 s
      on the card against the CPU (int16 within 2 LSB); the HP3 name swaps
@@ -276,11 +276,22 @@ Phases, one line of output each (any failure exits non-zero):
      within 1 LSB of `DeviceSeparator.separate` and `VC.vc_single` called
      directly, the output's length at 40 kHz, 6 K1 and 72 K2, the wall ms
      of each half;
+ R1. FLOPs a call, TFLOP/s and MFU (`utils/roofline.py`) of the 10 s
+     conversion with pm and with RMVPE (phases 3 and 7), the 48 kHz block
+     (8), the N = 8 tick (12), the v2/48k bf16 step (T2, counted on a copy
+     of the state) and the 30 s HP5 separation (U1), each counted at the
+     end of its phase on that phase's objects and printed there with the
+     phase's median wall, `device_peak_tflops` of its type and the card's
+     name and power limit; each count must launch nothing, walk the
+     launches the phase read and give the kernels the FLOPs of their
+     formulas at the path's shapes; phase 5 counts each 1 s conversion
+     on the card and on the CPU, which must be equal; a closing R1 line;
 then one JSON line of kernels, the card line again, and the result line.
 Each phase line carries `t_s`, the seconds since the script started.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -358,6 +369,86 @@ def bound(flops, nbytes):
 
 
 # ---------------------------------------------------------------------------
+# R1: FLOPs a call, TFLOP/s and MFU of the main paths (utils/roofline.py),
+# counted at the end of the phase that built each path's objects
+# ---------------------------------------------------------------------------
+
+R1_ROWS = []    # one row a counted path
+R1_CPU = {}     # f0 method -> {"cuda": FLOPs, "cpu": FLOPs} (against_cpu)
+
+
+def kernel_flops(attn=None, stages=(), ks=(3, 7, 11), N=1, layers=6):
+    """The kernels' formulas summed over one call's launches: `layers` K1
+    at `attn` (BH, T, dk) and one K2 stage (its 18 launches) at each
+    (C, T) of `stages`, for N streams."""
+    from tpu_rvc_torch.ops.kernels import attention_flops, stage_flops
+
+    return {"banded_rel_attention": (layers * attention_flops(*attn)
+                                     if attn else 0),
+            "fused_stage": sum(stage_flops(C, T, ks, N) for C, T in stages),
+            "fused_resblock": 0}
+
+
+def count_path(path, count, wall_ms, dtype, launches, kernels):
+    """R1 for one path: `count()` (a `last_graph_flops` or `step_flops`)
+    inside the kernels' counting context.  It fails unless the count is a
+    positive number, `launch_counts` does not move, the count walks the
+    launches the phase read (`launches`) and the kernels' share of it is
+    their formulas at the path's shapes (`kernels`).  Prints FLOPs a
+    call, the phase's median wall, TFLOP/s and MFU against
+    `device_peak_tflops(dtype)`, and the card's name and power limit."""
+    from tpu_rvc_torch.ops.kernels import counting, launch_counts
+    from tpu_rvc_torch.utils.roofline import device_peak_tflops, mfu_fields
+
+    before = dict(launch_counts)
+    t0 = time.perf_counter()
+    with counting() as kc:
+        flops = count()
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    if dict(launch_counts) != before:
+        raise AssertionError(f"R1 {path}: the count launched kernels: "
+                             f"{before} -> {dict(launch_counts)}")
+    if not (isinstance(flops, float) and flops > 0):
+        raise AssertionError(f"R1 {path}: count {flops!r}")
+    if kc.launches != launches:
+        raise AssertionError(f"R1 {path}: the count walked {kc.launches}, "
+                             f"the phase launched {launches}")
+    if kc.flops != kernels:
+        raise AssertionError(f"R1 {path}: kernel FLOPs {kc.flops}, their "
+                             f"formulas at the path's shapes {kernels}")
+    peak = device_peak_tflops(dtype)
+    if peak is None:
+        raise AssertionError(f"R1 {path}: no {dtype} peak for "
+                             f"{torch.cuda.get_device_name(0)}")
+    row = dict(path=path, wall_ms_median=wall_ms,
+               **mfu_fields(flops, wall_ms / 1e3, peak), dtype=str(dtype),
+               peak_tflops=peak, kernel_flops=kc.flops,
+               kernel_share=kc.total() / flops, count_s=count_s,
+               card=card_line())
+    say("R1", **row)
+    R1_ROWS.append(row)
+
+
+def roofline_summary():
+    """R1's closing line: the five paths counted, the card's count of the
+    offline conversion equal to the CPU's, the seconds the counts took."""
+    want = {"offline_10s_pm", "offline_10s_rmvpe", "streaming_block_48k",
+            "serving_tick_n8", "train_step_v2_48k_bf16", "uvr5_hp5_30s"}
+    got = {r["path"] for r in R1_ROWS}
+    if got != want:
+        raise AssertionError(f"R1 counted {sorted(got)}, not {sorted(want)}")
+    for method in ("pm", "rmvpe"):
+        pair = R1_CPU.get(method, {})
+        if len(pair) != 2 or pair["cuda"] != pair["cpu"]:
+            raise AssertionError(f"R1 offline {method}: card and CPU counts "
+                                 f"{pair}")
+    say("R1", summary=True, paths=sorted(got), card_vs_cpu_flops=R1_CPU,
+        card_equals_cpu=True, no_launch_while_counting=True,
+        count_s=sum(r["count_s"] for r in R1_ROWS), card=card_line())
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain twins
 # ---------------------------------------------------------------------------
 
@@ -382,7 +473,9 @@ def check_attention(kr, g, T, lengths, phase="kernel"):
         ms = median_ms(lambda: kr.banded_rel_attention(*args), iters=20)
         plain_ms = median_ms(lambda: kr.banded_rel_attention_plain(*args))
         # the work these lengths need: every query row against the keys
-        # below its length (Q.K^T, softmax, P.V), plus the two band terms
+        # below its length (Q.K^T, softmax, P.V), plus the two band terms;
+        # `attention_flops`, the count R1 adds up, takes every key, as the
+        # plain twin computes them, and reads no length (it would wait)
         keys = T * sum(lens)
         flops = (4 * dk + 5) * keys + 4 * BH * T * (2 * W + 1) * dk
         nbytes = 4 * (4 * BH * T * dk + 2 * (2 * W + 1) * dk) + 4 * BH
@@ -413,7 +506,9 @@ def stage_inputs(rs, C, T, ks, g, N=1):
 def stage_cost(C, T, ks, N=1):
     """N streams: N x the operations and the activations, the weights
     read once."""
-    flops = 2 * C * C * T * 6 * sum(ks) * N
+    from tpu_rvc_torch.ops.kernels import stage_flops
+
+    flops = stage_flops(C, T, ks, N)
     nbytes = 4 * (2 * C * T * N + 6 * sum(ks) * C * C + 6 * len(ks) * C)
     return bound(flops, nbytes)
 
@@ -467,6 +562,8 @@ def check_stage(rs, g, name, shapes, ks, phase="kernel", N=1,
     return rows
 
 
+# the v2/48k decoder stages for a 16 s bucket (1598 frames)
+OFFLINE_STAGES = [(256, 19176), (128, 191760), (64, 383520), (32, 767040)]
 # one streaming block at 48 kHz, 0.25 s blocks, 0.05 s crossfade, 2.5 s of
 # context: enc_p sees the 281-frame window, the decoder the 30-frame tail
 STREAM_T = 281
@@ -514,8 +611,7 @@ def check_kernels():
 
     g = torch.Generator(device="cuda").manual_seed(0)
     ks = (3, 7, 11)
-    # the v2/48k decoder stages for a 16 s bucket (1598 frames)
-    stages = [(256, 19176), (128, 191760), (64, 383520), (32, 767040)]
+    stages = OFFLINE_STAGES
     k1 = check_attention(kr, g, 1598, ([1598, 1598], [1598, 1287]))
     k2 = check_stage(rs, g, "fused_stage", stages, ks)
     k3 = check_stage(rs, g, "fused_resblock", stages, (7,))
@@ -743,7 +839,7 @@ def check_output(audio, n_expected, what):
         raise AssertionError(f"{what}: output is not finite audio")
 
 
-def end_to_end(tmp, f0_method, phase):
+def end_to_end(tmp, f0_method, phase, count=False):
     from tpu_rvc_torch.core.config import hparams_for
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.vc import VC
@@ -788,6 +884,10 @@ def end_to_end(tmp, f0_method, phase):
                              f"expected {want}")
     split = {k: float(np.median([s.get(k, 0.0) for s in stages]))
              for k in stages[-1]}
+    if count:   # R1: the 1598-frame window, the four 16 s decoder levels
+        count_path(f"offline_10s_{f0_method}", vc.pipeline.last_graph_flops,
+                   float(np.median(walls)), torch.float32, counts,
+                   kernel_flops((2, 1598, 96), OFFLINE_STAGES))
     say(phase, model="v2/48k random weights", f0_method=f0_method,
         input_s=10.0, index_rows=10000, load_s=load_s, wall_ms=walls,
         wall_ms_median=float(np.median(walls)), stage_ms=split,
@@ -833,12 +933,15 @@ def single_resblock_path(tmp):
 
 
 def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
-                estimators=None):
+                estimators=None, count=False):
     """The same deterministic conversion on the card and on the CPU, for
     each f0 method; `estimators(device)` gives estimators to put in the
     pipeline's generator (CREPE has no default file).  Returns, by
     method, the (card, CPU) float outputs before the RMS mix and int16,
-    trimmed as the int16 output is."""
+    trimmed as the int16 output is.  With `count`, R1's check: each
+    conversion's `last_graph_flops` on the card and on the CPU, which
+    must be equal."""
+    from tpu_rvc_torch.ops.kernels import launch_counts
     from tpu_rvc_torch.audio.io import load_audio
     from tpu_rvc_torch.models.hubert import hubert_for_version
     from tpu_rvc_torch.models.loader import load_synthesizer
@@ -873,11 +976,18 @@ def against_cpu(tmp, methods=("pm", "rmvpe"), phase="against_cpu",
             n = outs[method][-1].shape[0]
             floats[method].append(
                 rows[-1][pipe.t_pad_tgt: pipe.t_pad_tgt + n])
+            if count:   # after the spy's row is read: the count adds one
+                before = dict(launch_counts)
+                R1_CPU.setdefault(method, {})[dev] = pipe.last_graph_flops()
+                if dict(launch_counts) != before:
+                    raise AssertionError(f"R1 {method} on {dev}: the count "
+                                         "launched kernels")
     for method, (gpu, cpu) in outs.items():
         rel = rel_l2(gpu, cpu, f"offline {method}")
         say(phase, f0_method=method, input_s=1.0,
             samples=int(gpu.shape[0]), rel_l2_err=rel,
-            max_abs_int16=float(np.abs(gpu - cpu).max()))
+            max_abs_int16=float(np.abs(gpu - cpu).max()),
+            flops_card_cpu=R1_CPU.get(method) if count else None)
     return floats
 
 
@@ -1055,7 +1165,7 @@ def export_check_us(sess, audio, first, reps=100000):
 
 
 def streaming(tmp, n_warm=3, n_timed=10, n_profiled=4, f0method="rmvpe",
-              paths=(True, False), phase="streaming"):
+              paths=(True, False), phase="streaming", count=False):
     from tpu_rvc_torch.ops.kernels import launch_counts, reset_launch_counts
     from tpu_rvc_torch.pipeline.rt import StreamSession
     from tpu_rvc_torch.utils import timing
@@ -1102,6 +1212,10 @@ def streaming(tmp, n_warm=3, n_timed=10, n_profiled=4, f0method="rmvpe",
             busy, top = device_busy_ms(lambda: feed_blocks(
                 sess, audio, n_warm + n_timed, n_profiled))
         wall = float(np.median(walls))
+        if fused and count:   # R1: a 281-frame window, a 30-frame tail
+            count_path("streaming_block_48k", sess._fused.last_graph_flops,
+                       wall, torch.float32, want,
+                       kernel_flops((2, STREAM_T, 96), STREAM_STAGES))
         checks, draws, check_us, wrap_us, added_us = export_check_us(
             sess, audio, n_warm + n_timed + n_profiled - 1)
         say(phase, path="fused" if fused else "host",
@@ -1230,7 +1344,7 @@ def lockstep_tick(sched, slots, audios, i, each=None):
 
 def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
             modes=(False, True), phase="serving", kind=("v2", 48000, True),
-            samplerate=48000):
+            samplerate=48000, count=False):
     """Phase 12 for one N (P3 for another `kind` (version, sr, use_f0) of
     model, the index of its phone width, clients at `samplerate`):
     serial, then pipelined, on the same audio.  Returns the launches of
@@ -1319,6 +1433,11 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
         split = ({k: float(np.median([sp.get(k, 0.0) for sp in spans]))
                   for k in spans[-1]} if spans else None)
         wall = float(np.median(walls))
+        if count and not pipelined:   # R1: K1 over 2N heads, K2 over N
+            count_path(f"serving_tick_n{n_slots}",
+                       sched.fused.last_graph_flops, wall, torch.float32,
+                       want, kernel_flops((2 * n_slots, STREAM_T, 96),
+                                          STREAM_STAGES, N=n_slots))
         say(phase, mode="pipelined" if pipelined else "serial",
             slots=n_slots, model=f"{kind_name(*kind)} random weights",
             f0method=f0method if use_f0 else None, samplerate=samplerate,
@@ -1923,6 +2042,13 @@ def train_full_width(tmp, exp, epochs=2, n_warm=3, n_timed=8, n_profiled=3):
     wall = steps["step_ms_median"]
     three = [next(it) for _ in range(n_profiled)]
     busy, top = device_busy_ms(lambda: [state.train_step(b) for b in three])
+    step = state.step   # R1: one step counted on a copy of the state
+    count_path("train_step_v2_48k_bf16",
+               functools.partial(state.step_flops, three[-1]), wall,
+               torch.bfloat16, dict.fromkeys(launch_counts, 0),
+               kernel_flops())
+    if state.step != step:
+        raise AssertionError("R1: counting a step advanced the state")
     replay = deterministic_replay(state, three[-1])
     train_counts = {k: run_counts[k] + v for k, v in launch_counts.items()}
     no_launches("the timed training steps")
@@ -2801,10 +2927,9 @@ def no_kernel_launches(what):
 def separation_figures(dev_sep, path, seconds, n_timed=3):
     """`DeviceSeparator.separate(path)`: 1 warm-up and n_timed runs on the
     host clock to the int16 fetch, with CUDA-event spans, launches, peak
-    memory, windows and calls of the net; then the profiler's busy ms and
-    FlopCounterMode's operations over one more run each."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    memory, windows and calls of the net; then the profiler's busy ms
+    over one more run and the graph's FLOPs (`last_graph_flops`, the
+    LSTM counted as XLA counts it)."""
     from tpu_rvc_torch.ops.kernels import reset_launch_counts
     from tpu_rvc_torch.utils import timing
 
@@ -2830,9 +2955,7 @@ def separation_figures(dev_sep, path, seconds, n_timed=3):
     hook.remove()
     peak = torch.cuda.max_memory_allocated() / 1e9
     busy, top = device_busy_ms(lambda: dev_sep.separate(path))
-    with FlopCounterMode(display=False) as fc:
-        dev_sep.separate(path)
-    flops = fc.get_total_flops()
+    flops = dev_sep.last_graph_flops()
     span_ms = {k: float(np.median([s.get(k, 0.0) for s in spans]))
                for k in spans[-1]}
     wall = float(np.median(walls))
@@ -2924,6 +3047,9 @@ def hp_separation(tmp):
             dev, song30, SONG_S)
         if not tta:
             dev_out = out
+            count_path("uvr5_hp5_30s", dev.last_graph_flops,
+                       figures["tta_0"]["wall_ms_median"], torch.float32,
+                       counts, kernel_flops())
     sep.tta = False
     ins, voc, host_walls = host_figures(sep, song30, SONG_S, n_timed=1)
     rels = device_vs_host(dev_out, (ins, voc), "HP5")
@@ -2992,9 +3118,7 @@ def deecho_separation(tmp):
         host_wall_ms_median=float(np.median(host_walls)),
         device_vs_host_rel_l2=rels, card_vs_cpu_3s=cpu,
         card_vs_cpu_gate=f"int16 within {CARD_VS_CPU_LSB} LSB",
-        swap_lsb=swap_lsb,
-        flops_note="FlopCounterMode counts the convolutions and the dense "
-                   "layers, not the cuDNN LSTM")
+        swap_lsb=swap_lsb)
     phase_seconds("U2", t0)
     return counts
 
@@ -4381,16 +4505,18 @@ def main():
         entries = check_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         write_rmvpe(tmp, seed=9)
-        main_counts = end_to_end(tmp, "pm", "end_to_end")
+        main_counts = end_to_end(tmp, "pm", "end_to_end", count=True)
         rb_counts = single_resblock_path(tmp)
-        against_cpu_floats = against_cpu(tmp)
-        rmvpe_counts = end_to_end(tmp, "rmvpe", "end_to_end_rmvpe")
+        against_cpu_floats = against_cpu(tmp, count=True)
+        rmvpe_counts = end_to_end(tmp, "rmvpe", "end_to_end_rmvpe",
+                                  count=True)
         if rmvpe_counts != main_counts:
             raise AssertionError(f"launches with rmvpe {rmvpe_counts}")
-        stream_counts = streaming(tmp)
+        stream_counts = streaming(tmp, count=True)
         stream_rb_counts = streaming_single_resblock(tmp)
         streaming_against_cpu(tmp, n_blocks=6)
-        serve_counts = serving(tmp, BATCH_N, n_warm=3, n_timed=10)
+        serve_counts = serving(tmp, BATCH_N, n_warm=3, n_timed=10,
+                               count=True)
         for n in (1, 4):
             if serving(tmp, n, n_warm=3, n_timed=5) != serve_counts:
                 raise AssertionError(f"launches a tick differ at N={n}")
@@ -4423,6 +4549,7 @@ def main():
         family_stream_counts = family_streaming(tmp)
         family_serve_counts = family_serving(tmp)
         uvr_40k_counts = separated_vocal_into_40k(tmp)
+    roofline_summary()
     for e in entries:
         rb = e["name"] == "fused_resblock"
         e["launches"] = (rb_counts if rb else main_counts)[e["name"]]

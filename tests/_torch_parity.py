@@ -12,6 +12,7 @@ weights into both packages' realtime engines and multi-stream schedulers,
 both deterministic (no prior or source noise), for the serving tests.
 """
 
+import os
 import re
 
 import numpy as np
@@ -58,6 +59,17 @@ FULL = dict(n_blocks=4, n_gru=1, en_de_layers=5, inter_layers=4,
 # the convs the reference keeps under weight norm
 _WEIGHT_NORM = re.compile(r"^(dec\.ups\.|dec\.resblocks\.|flow\.flows\.\d+"
                           r"\.enc\.(in_layers|res_skip_layers|cond_layer))")
+
+
+def single_threaded_child():
+    """In a spawned child of a test, before its first JAX operation: one
+    torch thread and one XLA CPU thread (XLA reads its flags when its
+    backend starts), so that the child does not take the cores the
+    suite's workers share; its JAX step ran no slower so on this CPU."""
+    torch.set_num_threads(1)
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"
+        " intra_op_parallelism_threads=1").strip()
 
 
 def seeded(cls, seed, **kw):

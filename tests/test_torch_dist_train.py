@@ -16,6 +16,7 @@ more than 1e-6 off."""
 
 import concurrent.futures
 import dataclasses
+import multiprocessing as mp
 import os
 import shutil
 
@@ -27,7 +28,6 @@ import jax
 import jax.numpy as jnp
 
 from tpu_rvc.core import config as jax_config
-from tpu_rvc.parallel.fsdp import fsdp_spec as jax_fsdp_spec
 from tpu_rvc.train import data as jax_data
 from tpu_rvc.train.extract import extract_f0 as jax_extract_f0
 from tpu_rvc.train.step import create_train_state as jax_create_train_state
@@ -35,7 +35,7 @@ from tpu_rvc.train.step import make_train_step
 
 from tpu_rvc_torch.audio.io import save_wav
 from tpu_rvc_torch.core import config
-from tpu_rvc_torch.parallel import fsdp, multihost
+from tpu_rvc_torch.parallel import multihost
 from tpu_rvc_torch.tools.dist_steps import (Ranks, full_params, make_batch,
                                             run_steps)
 from tpu_rvc_torch.train import data
@@ -43,7 +43,7 @@ from tpu_rvc_torch.train.extract import extract_f0, extract_features
 from tpu_rvc_torch.train.loop import run_training
 from tpu_rvc_torch.train.step import create_train_state
 
-from _torch_parity import SMALL_HUBERT, hubert_pair
+from _torch_parity import SMALL_HUBERT, hubert_pair, single_threaded_child
 from test_torch_train import TERMS, jax_trees, tiny
 from test_torch_train_data import (fake_experiment, mute_experiment, voice,
                                    tiny_mute_hp)
@@ -84,6 +84,26 @@ def rel(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
 
+def jax_steps(g, d):
+    """tpu_rvc's step twice on the pinned batch from the weights (g, d),
+    in a process of its own, compiled at XLA's backend optimization level
+    0 (a shorter compile, the same function) -> each step's loss terms
+    and grad norms."""
+    single_threaded_child()
+    jstate, net_g, net_d = jax_create_train_state(
+        JAX_HP, jax.random.PRNGKey(0), g_params=g, d_params=d)
+    jbatch = {k: jnp.asarray(v) for k, v in PINNED.items()}
+    key = jax.random.PRNGKey(1)
+    jstep = make_train_step(net_g, net_d, JAX_HP, donate=False).lower(
+        jstate, jbatch, key).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    metrics = []
+    for _ in range(2):
+        jstate, m = jstep(jstate, jbatch, key)
+        metrics.append({k: float(m[k]) for k in TERMS})
+    return metrics
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Two gloo ranks on a (2, 1) mesh (replicated: the gradients
@@ -104,20 +124,11 @@ def runs(tmp_path_factory):
     state = create_train_state(HP, seed=SEED, device="cpu")
     g, d = jax_trees(state)
 
-    def jax_steps():
-        jstate, net_g, net_d = jax_create_train_state(
-            JAX_HP, jax.random.PRNGKey(0), g_params=g, d_params=d)
-        jstep = make_train_step(net_g, net_d, JAX_HP, donate=False)
-        jbatch = {k: jnp.asarray(v) for k, v in PINNED.items()}
-        metrics = []
-        for _ in range(2):
-            jstate, m = jstep(jstate, jbatch, jax.random.PRNGKey(1))
-            metrics.append({k: float(m[k]) for k in TERMS})
-        return metrics
-
-    # XLA compiles the JAX step (about 40 s) while torch runs its steps
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        jax_metrics = pool.submit(jax_steps)
+    # XLA compiles the JAX step in a spawned process while torch runs its
+    # steps here (in a thread, its tracing held the interpreter lock)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=mp.get_context("spawn")) as pool:
+        jax_metrics = pool.submit(jax_steps, g, d)
         one, _, one_params = run_steps(
             state, [PINNED, PINNED, UNPINNED, UNPINNED], (2, 4), full_params)
         out = dict(one=one, one_params=one_params,
@@ -128,25 +139,8 @@ def runs(tmp_path_factory):
 
 
 # ---------------------------------------------------------------------------
-# the library's pure parts
+# the library's pure parts (`fsdp_spec` is held in tests/test_torch_fsdp.py)
 # ---------------------------------------------------------------------------
-
-def tiny_leaf_shapes():
-    state = create_train_state(tiny(config), seed=0, device="cpu")
-    return sorted({tuple(p.shape) for net in (state.net_g, state.net_d)
-                   for p in net.parameters()})
-
-
-@pytest.mark.parametrize("n_shard", [1, 2, 4])
-def test_fsdp_spec_matches_jax(n_shard):
-    """tests/test_train.py's shapes and every leaf shape of the tiny G and
-    D: the port's axis is the one the JAX PartitionSpec names."""
-    shapes = [(7, 64, 128), (128, 64), (64, 128), (33,), (), (256,)]
-    for shape in shapes + tiny_leaf_shapes():
-        spec = tuple(jax_fsdp_spec(shape, n_shard))
-        want = spec.index("model") if "model" in spec else None
-        assert fsdp.fsdp_spec(shape, n_shard) == want, shape
-
 
 @pytest.mark.parametrize("batch_size,world", [(2, 2), (4, 2), (4, 4)])
 def test_epoch_local_slice_matches_jax(tmp_path, batch_size, world):

@@ -46,6 +46,8 @@ from tpu_rvc_torch.core import config
 from tpu_rvc_torch.ops import mel
 from tpu_rvc_torch.train.step import create_train_state
 
+from _torch_parity import single_threaded_child
+
 B, T, SEG_FRAMES = 2, 16, 12
 IDS = np.array([3, 1], np.int32)
 LENGTHS = np.array([T, 14], np.int32)
@@ -133,15 +135,15 @@ def port_trainer(kind):
     return hp, state, make_batch(hp, use_f0, np.random.default_rng(5))
 
 
-def jax_side(kind):
-    """tpu_rvc's side of a kind, in a process of its own, from the port
-    trainer's initial weights carried over the reference layout: its
-    forward on the pinned batch, and two pinned steps of its jitted step
-    (compiled at XLA's backend optimization level 0, which halves the
-    compile here and gave the same losses bit for bit) -> the forward,
-    each step's metrics, and the weights after step 1 in the port's
-    layout."""
-    torch.set_num_threads(1)
+def jax_side(kind, part):
+    """tpu_rvc's side of a kind, `part` "forward" or "step", each in a
+    process of its own, from the port trainer's initial weights carried
+    over the reference layout: its forward on the pinned batch, or two
+    pinned steps of its jitted step (both compiled at XLA's backend
+    optimization level 0, which halves the step's compile here and gave
+    the same losses bit for bit) -> the forward, or each step's metrics
+    and the weights after step 1 in the port's layout."""
+    single_threaded_child()
     version, sr, use_f0 = KINDS[kind]
     hp, state, batch = port_trainer(kind)
     m = hp.model
@@ -155,16 +157,20 @@ def jax_side(kind):
     jstate, net_g, net_d = jax_create_train_state(
         narrow(jax_config, version, sr), jax.random.PRNGKey(0), g_params=g,
         d_params=d, use_f0=use_f0)
-    pitch = (batch["pitch"], batch["pitchf"]) if use_f0 else ()
-    forward = jax.jit(functools.partial(net_g.apply, deterministic=True))(
-        {"params": g}, batch["phone"], batch["phone_lengths"],
-        batch["spec"], batch["spec_lengths"], batch["sid"], *pitch,
-        ids_slice=IDS, noise_eps=batch["pin_noise_eps"])
+    level0 = {"xla_backend_optimization_level": 0}
+    if part == "forward":
+        pitch = (batch["pitch"], batch["pitchf"]) if use_f0 else ()
+        forward = jax.jit(functools.partial(net_g.apply, deterministic=True),
+                          compiler_options=level0)(
+            {"params": g}, batch["phone"], batch["phone_lengths"],
+            batch["spec"], batch["spec_lengths"], batch["sid"], *pitch,
+            ids_slice=IDS, noise_eps=batch["pin_noise_eps"])
+        return jax.device_get(forward)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     key = jax.random.PRNGKey(1)
     step = make_train_step(net_g, net_d, narrow(jax_config, version, sr),
                            donate=False).lower(jstate, jbatch, key).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
+        compiler_options=level0)
     wants, after_1 = [], None
     for i in range(2):
         jstate, want = step(jstate, jbatch, key)
@@ -173,8 +179,7 @@ def jax_side(kind):
             after_1 = train_state_from_jax(jax.device_get(jstate.g_params),
                                            jax.device_get(jstate.d_params),
                                            version)
-    return dict(forward=jax.device_get(forward), wants=wants,
-                after_1=after_1)
+    return dict(wants=wants, after_1=after_1)
 
 
 def port_side(hp, state, batch, use_f0):
@@ -204,12 +209,14 @@ def port_side(hp, state, batch, use_f0):
 @pytest.fixture(scope="module")
 def worlds(one_torch_thread):
     """Each kind's port trainer, batch and results; tpu_rvc's side of
-    every kind starts first, each in a spawned process of its own
-    (tracing the JAX step holds the interpreter lock for tens of
-    seconds), and runs while the port's side runs here."""
-    with ProcessPoolExecutor(len(KINDS),
+    every kind starts first, its forward and its steps each in a spawned
+    process of their own (tracing the JAX step holds the interpreter lock
+    for tens of seconds), and runs while the port's side runs here."""
+    parts = ("forward", "step")
+    with ProcessPoolExecutor(len(KINDS) * len(parts),
                              mp_context=mp.get_context("spawn")) as pool:
-        futures = {kind: pool.submit(jax_side, kind) for kind in KINDS}
+        futures = {kind: {part: pool.submit(jax_side, kind, part)
+                          for part in parts} for kind in KINDS}
         out = {}
         for kind, (version, _, use_f0) in KINDS.items():
             hp, state, batch = port_trainer(kind)
@@ -250,7 +257,7 @@ def test_family_forward_matches_jax(world):
     pinned: the segment's audio to 1e-4, every latent to atol 1e-5 /
     rtol 1e-4."""
     hp, got = world["hp"], world["port"]["forward"]
-    want = world["jax"].result()["forward"]
+    want = world["jax"]["forward"].result()
     assert got[0].shape == (B, hp.train.segment_size, 1)
     close(got[0], want[0], rtol=0, atol=1e-4, what="audio")
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
@@ -289,7 +296,7 @@ def test_family_train_step_matches_jax(world):
     0.1% of them off by more than 1e-6."""
     hp, port = world["hp"], world["port"]
     assert port["steps"] == 2
-    jax_run = world["jax"].result()
+    jax_run = world["jax"]["step"].result()
     lr = hp.train.learning_rate
     for i, (got, want) in enumerate(zip(port["gots"], jax_run["wants"])):
         for k in TERMS:

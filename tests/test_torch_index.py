@@ -13,6 +13,17 @@ from tpu_rvc_torch.retrieval.index import (FeatureIndex, build_index,
                                            train_kmeans)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def features(n=2000, d=32, seed=0):
     """Clustered rows, so that assignments are not near-ties."""
     rng = np.random.default_rng(seed)

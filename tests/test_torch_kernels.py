@@ -33,6 +33,17 @@ from _torch_inputs import W, attn_inputs, stage_inputs, stage_weights
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("T", [64, 70])
 def test_rel_attention_plain_matches_pallas_interpret(rng, T):
     """All rows, mixed lengths, T a multiple of the 32-row q tile and
@@ -237,3 +248,46 @@ def test_stage_weights_round_trip_to_the_modules(rng):
             want = want + cur[0] / 3
     torch.testing.assert_close(stage_plain(x, sw), want, rtol=1e-5,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the training attention's band (nn/attention.py's differentiable branch)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [12, 13, 40])
+def test_band_skew_equals_clamped_scatter_and_gather(T):
+    """The training attention adds its band by pads and reshapes
+    (`band_to_dense`, `dense_to_band`), where the JAX branch scatters and
+    gathers at clamped columns (tpu_rvc/nn/attention.py:206-225): the same
+    values and the same gradients, bit for bit, fp32 and bf16."""
+    from tpu_rvc_torch.nn.attention import band_to_dense, dense_to_band
+
+    W = 10
+    rng = np.random.default_rng(T)
+    rows = torch.arange(T)[:, None]
+    cols = rows + torch.arange(-W, W + 1)[None, :]
+    valid = ((cols >= 0) & (cols < T)).float()
+    cols_c = cols.clamp(0, T - 1).expand(2, 3, T, 2 * W + 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        mk = lambda *shape: torch.from_numpy(  # noqa: E731
+            rng.standard_normal(shape).astype(np.float32)).to(dtype)
+        band0 = mk(2, 3, T, 2 * W + 1)
+        dense0 = mk(2, 3, T, T)
+        w_out = mk(2, 3, T, 2 * W + 1)
+        results = []
+        for skew in (False, True):
+            band = band0.clone().requires_grad_()
+            dense = dense0.clone().requires_grad_()
+            if skew:
+                scores = dense + band_to_dense(band, W)
+                read = dense_to_band(scores.softmax(-1), W)
+            else:
+                scores = dense.scatter_add(-1, cols_c,
+                                           band * valid.to(dtype))
+                read = torch.gather(scores.softmax(-1), -1, cols_c) * \
+                    valid.to(dtype)
+            (read * w_out).float().sum().backward()
+            results.append((scores, read, band.grad, dense.grad))
+        for want, got in zip(*results):
+            assert torch.equal(got, want)

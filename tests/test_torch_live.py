@@ -11,6 +11,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_rvc.audio import native_ring as jax_ring
 from tpu_rvc.pipeline import live as jax_live
@@ -24,6 +25,17 @@ from _torch_parity import (SERVE_GEOMETRY, engine_pair, serving_world,
 
 TOL = 2e-3
 BF = 2560
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class EchoSession:

@@ -6,11 +6,23 @@ is off); the two MCDs agree to 1e-3 dB (measured: under 1e-5 dB)."""
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_rvc.utils import mcd as jax_mcd
 from tpu_rvc_torch.utils import mcd
 
 MCD_DB = 1e-3     # |port - JAX| in dB
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def speech(seconds, sr, seed, f0=150.0):

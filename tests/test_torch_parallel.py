@@ -1,5 +1,5 @@
 """Conversion across devices in tpu_rvc_torch against tpu_rvc, on the CPU:
-the mesh, `batch_convert` (B utterances as one batch) and `convert_long`
+replicas, `batch_convert` (B utterances as one batch) and `convert_long`
 (one long utterance's chunks as rows), with one set of small weights in
 both packages (tests/_torch_parity.py).  The JAX side runs on its 8
 virtual devices (tests/conftest.py); the port rehearses 1-4 shards by
@@ -12,8 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-
 from tpu_rvc.core.mesh import make_mesh as jax_make_mesh
 from tpu_rvc.f0.rmvpe import RMVPE as JaxRMVPE
 from tpu_rvc.models.hubert import Hubert as JaxHubert
@@ -25,9 +23,7 @@ from tpu_rvc.retrieval.index import FeatureIndex as JaxIndex
 
 from tpu_rvc_torch.audio.dsp import highpass_filter
 from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
-from tpu_rvc_torch.core.device import draw_normal
-from tpu_rvc_torch.core.mesh import (gather_rows, make_mesh, replicas,
-                                     shard_bounds, split_rows)
+from tpu_rvc_torch.core.mesh import make_mesh, replicas
 from tpu_rvc_torch.f0.rmvpe import RMVPE
 from tpu_rvc_torch.models.synthesizer import Synthesizer
 from tpu_rvc_torch.parallel import (batch_convert, convert_long,
@@ -121,55 +117,8 @@ def lsb_share(got, want, lsb):
 
 
 # ---------------------------------------------------------------------------
-# the mesh
+# replicas (the mesh itself is held in tests/test_torch_mesh.py)
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("n_data,n_model", [(4, 1), (2, 2), (1, 4)])
-def test_make_mesh_shapes(n_data, n_model):
-    """The port's mesh has the JAX one's axis names and shape for the
-    same factorisation of four devices."""
-    mesh = make_mesh(n_data, n_model, devices=["cpu"] * 4)
-    jmesh = jax_make_mesh(n_data, n_model, devices=jax.devices()[:4])
-    print(f"mesh {mesh.devices} | jax {dict(jmesh.shape)}")
-    assert mesh.axis_names == tuple(jmesh.axis_names)
-    assert mesh.shape == dict(jmesh.shape)
-    assert mesh.shard_devices == [torch.device("cpu")] * n_data
-
-
-def test_make_mesh_errors_and_rows():
-    """n_data x n_model must equal the device count, as in JAX; the
-    default mesh needs CUDA; rows split over the data axis and come back
-    in order."""
-    with pytest.raises(ValueError, match="mesh 3x1 != 4 devices"):
-        make_mesh(3, devices=["cpu"] * 4)
-    with pytest.raises(ValueError):
-        jax_make_mesh(3, devices=jax.devices()[:4])
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            make_mesh()
-    mesh = make_mesh(devices=["cpu"] * 3)
-    x = np.arange(6 * 5).reshape(6, 5)
-    parts = split_rows(x, mesh)
-    print("row blocks", [tuple(p.shape) for p in parts])
-    assert [tuple(p.shape) for p in parts] == [(2, 5)] * 3
-    assert torch.equal(gather_rows(parts), torch.as_tensor(x))
-    with pytest.raises(ValueError, match="not divisible by data axis 3"):
-        shard_bounds(7, mesh)
-
-
-def test_draws_one_row_a_generator():
-    """A list of generators draws row i as generator i draws a batch of
-    one: the batched paths' noise rule."""
-    like = torch.zeros(())
-    gens = [torch.Generator().manual_seed(s) for s in (3, 4, 5)]
-    got = draw_normal((3, 7, 2), gens, like)
-    want = torch.cat([draw_normal((1, 7, 2), torch.Generator().manual_seed(s),
-                                  like) for s in (3, 4, 5)])
-    print("per-row draws equal:", torch.equal(got, want))
-    assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="3 generators for 2 rows"):
-        draw_normal((2, 7), gens, like)
 
 
 def test_replicas_are_made_once(world):

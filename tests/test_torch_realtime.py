@@ -1,7 +1,8 @@
-"""tpu_rvc_torch's realtime engine against tpu_rvc's on the CPU: block
-geometry, SOLA merge and phase vocoder, `RealtimeVC.infer`'s block
-contract and pitch caches, and `StreamSession` on the host and the fused
-path, at the small sizes of tests/test_realtime.py.
+"""tpu_rvc_torch's realtime engine against tpu_rvc's on the CPU:
+`RealtimeVC.infer`'s block contract and pitch caches, and `StreamSession`
+on the host and the fused path, at the small sizes of
+tests/test_realtime.py (the block geometry, SOLA merge and phase vocoder
+are in tests/test_torch_sola.py).
 
 Both engines are deterministic: tpu_rvc's `RealtimeVC` calls
 `Synthesizer.infer` with its defaults and so always draws prior noise
@@ -46,6 +47,17 @@ SMALL_SYNTH = dict(
     upsample_kernel_sizes=(20, 32), spk_embed_dim=2, gin_channels=16,
     sr=16000, encoder_dim=64, use_f0=True)
 TOL = 2e-3  # of full scale, the offline pipeline's sample-level gate
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class DeterministicJaxSynthesizer(JaxSynthesizer):
@@ -116,58 +128,6 @@ def engines(world, index_rate=0.0, **kw):
     jeng.formant_shift = kw.get("formant_shift", 0.0)
     jeng.index_rate = index_rate
     return port, jeng
-
-
-# ---------------------------------------------------------------------------
-# host-side pieces
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("args", [(48000, 0.25, 0.05, 2.5),
-                                  (16000, 0.16, 0.04, 0.5),
-                                  (44100, 0.1, 0.08, 1.0),
-                                  (32000, 0.2, 0.01, 0.3)])
-def test_block_geometry_matches_jax(args):
-    got, want = rt.BlockGeometry(*args), jax_rt.BlockGeometry(*args)
-    for name in ("sr", "zc", "block_frame", "crossfade_frame",
-                 "sola_buffer_frame", "sola_search_frame", "extra_frame",
-                 "total", "skip_head", "return_length"):
-        assert getattr(got, name) == getattr(want, name), name
-    np.testing.assert_allclose(got.fade_in, want.fade_in, atol=1e-6)
-    np.testing.assert_allclose(got.fade_out, want.fade_out, atol=1e-6)
-    if args[0] == 48000:  # the defaults' window: 281 frames, 250 + 30
-        assert (got.total, got.skip_head, got.return_length) == (134880, 250,
-                                                                 30)
-
-
-@pytest.mark.parametrize("use_pv", [False, True])
-@pytest.mark.parametrize("short", [False, True])
-def test_sola_merge_matches_jax(use_pv, short):
-    rng = np.random.default_rng(3 + use_pv)
-    geo = rt.BlockGeometry(16000, 0.16, 0.04, 0.5)
-    need = geo.block_frame + geo.sola_buffer_frame + geo.sola_search_frame
-    wav = voice(need - (37 if short else 0), seed=4)
-    buf = wav[53: 53 + geo.sola_buffer_frame] * 0.9 \
-        + 0.01 * rng.standard_normal(geo.sola_buffer_frame).astype(np.float32)
-    args = (wav, buf.astype(np.float32), geo.fade_in, geo.fade_out,
-            geo.block_frame, geo.sola_buffer_frame, geo.sola_search_frame)
-    got, got_buf = rt.sola_merge(*args, use_pv=use_pv)
-    want, want_buf = jax_rt.sola_merge(*args, use_pv=use_pv)
-    assert got.shape == (geo.block_frame,)
-    assert got_buf.shape == (geo.sola_buffer_frame,)
-    np.testing.assert_allclose(got, want, atol=1e-6)
-    np.testing.assert_allclose(got_buf, want_buf, atol=1e-6)
-
-
-@pytest.mark.parametrize("n", [64, 641])
-def test_phase_vocoder_matches_jax(n):
-    fade_in = np.sin(0.5 * np.pi * np.linspace(0, 1, n)) ** 2
-    a = voice(n, 5).astype(np.float64)
-    b = voice(n + 9, 6)[9:].astype(np.float64)
-    got = rt.phase_vocoder(a, b, 1.0 - fade_in, fade_in)
-    want = jax_rt.phase_vocoder(a, b, 1.0 - fade_in, fade_in)
-    assert got.shape == (n,)
-    np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

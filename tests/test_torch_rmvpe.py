@@ -1,8 +1,9 @@
 """tpu_rvc_torch's RMVPE f0 path against tpu_rvc's on the CPU: the STFT and
 HTK mel frontend, the E2E salience net (one seeded state dict in the
 reference `rmvpe.pt` layout, BatchNorm statistics drawn, loaded by both
-packages' own loaders), the on-device decode/resize chain, and the offline
-pipeline with f0_method="rmvpe" on both of its paths."""
+packages' own loaders), the on-device f0 chain, and the offline pipeline
+with f0_method="rmvpe" on both of its paths (the decode and resize alone
+are in tests/test_torch_f0_decode.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,6 @@ import torch
 from tpu_rvc.f0 import device as jax_dev
 from tpu_rvc.f0.rmvpe import RMVPE as JaxRMVPE
 from tpu_rvc.f0.rmvpe import rmvpe_mel as jax_rmvpe_mel
-from tpu_rvc.f0.rmvpe import to_local_average_cents as jax_cents_np
 from tpu_rvc.models.hubert import Hubert as JaxHubert
 from tpu_rvc.models.synthesizer import Synthesizer as JaxSynthesizer
 from tpu_rvc.ops.mel import mel_filterbank as jax_mel_filterbank
@@ -28,10 +28,9 @@ from tpu_rvc_torch.ckpt.convert import (rmvpe_state_from_jax,
 from tpu_rvc_torch.ckpt.rmvpe_loader import (load_rmvpe,
                                              random_rmvpe_reference_state,
                                              rmvpe_state_from_reference)
-from tpu_rvc_torch.f0 import base as f0_base
 from tpu_rvc_torch.f0 import device as port_dev
 from tpu_rvc_torch.f0.gen import Generator
-from tpu_rvc_torch.f0.rmvpe import RMVPE, rmvpe_mel, to_local_average_cents
+from tpu_rvc_torch.f0.rmvpe import RMVPE, rmvpe_mel
 from tpu_rvc_torch.models.rmvpe import E2E
 from tpu_rvc_torch.models.synthesizer import Synthesizer
 from tpu_rvc_torch.ops.mel import mel_filterbank
@@ -42,6 +41,17 @@ from tpu_rvc_torch.retrieval.index import FeatureIndex
 from _torch_parity import (FULL, SMALL_HUBERT, SMALL_SYNTH, TINY, e2e_pair,
                            hubert_pair, jax_synth_params, reference_state,
                            seeded)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread a worker: the suite runs in several processes, and
+    torch's default pool in each of them oversubscribes the cores (this
+    file's small operations ran 5-25x slower with it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def voice(n, seed=0, sr=16000):
@@ -128,59 +138,6 @@ def test_load_rmvpe_reads_the_reference_file(tmp_path):
         RMVPE(str(tmp_path / "missing" / "rmvpe.pt"), device="cpu")
     with pytest.raises(FileNotFoundError):
         Generator(tmp_path / "missing", device="cpu")._get("rmvpe")
-
-
-def test_to_local_average_cents_matches_jax():
-    sal = np.random.default_rng(4).uniform(0, 1, (50, 360)).astype(np.float32)
-    sal[5] *= 0.02                     # below the threshold
-    sal[6, 0], sal[7, 359] = 2.0, 2.0  # peaks at both edges of the bins
-    want = np.asarray(jax_dev.to_local_average_cents_jax(jnp.asarray(sal),
-                                                         0.03))
-    got = port_dev.to_local_average_cents(torch.from_numpy(sal), 0.03).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert got[5] == 0 and got[6] > 0
-    np.testing.assert_allclose(to_local_average_cents(sal, 0.03),
-                               jax_cents_np(sal, 0.03), rtol=1e-12)
-    np.testing.assert_allclose(got, jax_cents_np(sal, 0.03), rtol=1e-5)
-
-
-@pytest.mark.parametrize("n,target", [(40, 40), (40, 80), (40, 100),
-                                      (57, 31), (31, 64), (10, 1)])
-def test_resize_f0_matches_jax_and_numpy(n, target):
-    """Voiced/unvoiced edges on the target grid (integer ratios) and off
-    it; an unvoiced first and last frame."""
-    rng = np.random.default_rng(n * 100 + target)
-    f0 = rng.uniform(80, 400, n).astype(np.float32)
-    f0[rng.uniform(size=n) < 0.3] = 0.0
-    f0[n // 2: n // 2 + 3] = 0.0
-    f0[0] = 0.0
-    f0[-1] = 0.0 if target % 2 else f0[-1]
-    want = np.asarray(jax_dev.resize_f0_jax(jnp.asarray(f0), target))
-    got = port_dev.resize_f0(torch.from_numpy(f0), target).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6)
-    assert (got == 0).sum() == (want == 0).sum()
-    host = f0_base.resize_f0(f0, target)
-    np.testing.assert_allclose(got, host, rtol=1e-4)
-    from tpu_rvc.f0.base import resize_f0 as jax_host_resize
-    np.testing.assert_array_equal(host, jax_host_resize(f0, target))
-
-
-def test_f0_base_matches_jax():
-    from tpu_rvc.f0 import base as jb
-    f0 = np.array([0, 0, 100, 0, 0, 220, 230, 0, 0], np.float32)
-    for a, b in zip(f0_base.interpolate_f0(f0), jb.interpolate_f0(f0)):
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(f0_base.interpolate_f0(f0 * 0)[0], f0 * 0)
-    c, f = f0_base.post_process(f0, 3.0)
-    cj, fj = jb.post_process(100, f0, 3.0, 0.0)
-    np.testing.assert_array_equal(c, cj)
-    np.testing.assert_array_equal(f, fj)
-    est = f0_base.F0Predictor()
-    for m in (5, 9, 12):
-        np.testing.assert_array_equal(
-            est._fit_length(f0[:m] if m < 9 else np.pad(f0, (0, m - 9)), 9),
-            jb.F0Predictor()._fit_length(
-                f0[:m] if m < 9 else np.pad(f0, (0, m - 9)), 9))
 
 
 @pytest.mark.parametrize("n,up_key", [(16000, 0.0), (5120 * 2 - 160, -3.0)])

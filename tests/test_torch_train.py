@@ -8,7 +8,9 @@ generator against its exported small model."""
 
 import dataclasses
 import functools
+import multiprocessing as mp
 import os
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import pytest
@@ -38,6 +40,8 @@ from tpu_rvc_torch.ops.kernels import (banded_rel_attention, fused_resblock,
                                        fused_stage, pack_stage)
 from tpu_rvc_torch.train import losses
 from tpu_rvc_torch.train.step import create_train_state
+
+from _torch_parity import single_threaded_child
 
 B, T = 2, 24
 IDS = np.array([3, 7], np.int32)
@@ -135,19 +139,46 @@ def close(got, want, rtol=1e-4, atol=1e-5, what=""):
                                atol=atol, err_msg=what)
 
 
+def jax_steps(g, d, batch):
+    """tpu_rvc's jitted step, twice from the trainer's weights on the
+    pinned batch, in a process of its own, compiled at XLA's backend
+    optimization level 0 (a shorter compile, the same function) -> each
+    step's metrics and the weights after step 1 in the port's layout."""
+    single_threaded_child()
+    jstate, net_g, net_d = jax_create_train_state(
+        JAX_HP, jax.random.PRNGKey(0), g_params=g, d_params=d)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(1)
+    step = make_train_step(net_g, net_d, JAX_HP, donate=False).lower(
+        jstate, jbatch, key).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    wants, after_1 = [], None
+    for i in range(2):
+        jstate, want = step(jstate, jbatch, key)
+        wants.append(jax.device_get(want))
+        if i == 0:
+            after_1 = train_state_from_jax(jax.device_get(jstate.g_params),
+                                           jax.device_get(jstate.d_params),
+                                           "v1")
+    return wants, after_1
+
+
 @pytest.fixture(scope="module")
-def world():
-    """One seeded port trainer, its weights in the JAX trees, one pinned
-    batch, and the JAX step compiled once for the module."""
+def world(one_torch_thread):
+    """One seeded port trainer, its weights in the JAX trees and one pinned
+    batch; tpu_rvc's two steps start at once in a spawned process (the
+    step's compile holds the interpreter lock for tens of seconds) and run
+    while the module's other tests run here."""
     state = create_train_state(HP, seed=3, device="cpu")
     g, d = jax_trees(state)
     rng = np.random.default_rng(5)
     batch = pinned(make_batch(HP, rng), rng)
-    jstate, net_g, net_d = jax_create_train_state(
-        JAX_HP, jax.random.PRNGKey(0), g_params=g, d_params=d)
-    step = make_train_step(net_g, net_d, JAX_HP, donate=False)
-    return dict(state=state, g=g, d=d, batch=batch, jstate=jstate,
-                net_g=net_g, net_d=net_d, step=step)
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        steps = pool.submit(jax_steps, g, d, batch)
+        _, net_g, net_d = jax_create_train_state(
+            JAX_HP, jax.random.PRNGKey(0), g_params=g, d_params=d)
+        yield dict(state=state, g=g, d=d, batch=batch, net_g=net_g,
+                   net_d=net_d, jax_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -301,117 +332,6 @@ TERMS = ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_kl",
          "loss_gen_all", "grad_norm_g", "grad_norm_d")
 
 
-def test_train_step_matches_jax(world):
-    """Two pinned D-then-G steps against tpu_rvc's jitted step: every loss
-    term and both grad norms within 1e-3 relative at both steps; after
-    step 1 every parameter within 2 lr of the JAX one (Adam's first update
-    is +-lr an element, so a sign that flips on a near-zero gradient costs
-    2 lr), under 0.1% of them off by more than 1e-6."""
-    # a fresh trainer on the fixture's weights: the fixture's stays as it is
-    state = create_train_state(HP, device="cpu",
-                               g_state=world["state"].net_g.state_dict(),
-                               d_state=world["state"].net_d.state_dict())
-    jstate, b = world["jstate"], world["batch"]
-    jbatch = {k: jnp.asarray(v) for k, v in b.items()}
-    lr = HP.train.learning_rate
-    for i in range(2):
-        jstate, want = world["step"](jstate, jbatch, jax.random.PRNGKey(1))
-        got = state.train_step(b)
-        for k in TERMS:
-            w, g = float(want[k]), float(got[k])
-            assert abs(g - w) <= 1e-3 * abs(w), f"step {i + 1} {k}: {g} vs {w}"
-        close(got["mel_org"], want["mel_org"], what="mel_org")
-        if i == 0:
-            g_sd, d_sd = train_state_from_jax(jax.device_get(jstate.g_params),
-                                              jax.device_get(jstate.d_params),
-                                              "v1")
-            for net, ref in ((state.net_g, g_sd), (state.net_d, d_sd)):
-                own = net.state_dict()
-                assert set(own) == set(ref)
-                diff = torch.cat([(own[k] - ref[k]).abs().flatten()
-                                  for k in own])
-                assert float(diff.max()) <= 2 * lr * 1.01, float(diff.max())
-                assert float((diff > 1e-6).float().mean()) < 1e-3
-    assert state.step == 2
-
-
-def test_deterministic_step_is_reproducible_and_matches_jax(world):
-    """The step under `TrainState.deterministic` (`core/device.py`
-    `deterministic_math`): two fresh trainers on the fixture's weights take
-    the same two pinned steps bit for bit, each step's loss terms and grad
-    norms within 1e-3 relative of tpu_rvc's, and the caller's flags come
-    back after each step."""
-    flags = lambda: (torch.are_deterministic_algorithms_enabled(),  # noqa
-                     torch.backends.cudnn.deterministic,
-                     torch.backends.cudnn.benchmark,
-                     torch.utils.deterministic.fill_uninitialized_memory)
-    before = flags()
-    jstate, b = world["jstate"], world["batch"]
-    jbatch = {k: jnp.asarray(v) for k, v in b.items()}
-    wants = []
-    for _ in range(2):
-        jstate, want = world["step"](jstate, jbatch, jax.random.PRNGKey(1))
-        wants.append(want)
-    runs = []
-    for _ in range(2):
-        state = create_train_state(HP, device="cpu",
-                                   g_state=world["state"].net_g.state_dict(),
-                                   d_state=world["state"].net_d.state_dict())
-        state.deterministic = True
-        for want in wants:
-            got = state.train_step(b)
-            assert flags() == before
-            for k in TERMS:
-                w, g = float(want[k]), float(got[k])
-                assert abs(g - w) <= 1e-3 * abs(w), f"{k}: {g} vs {w}"
-        runs.append({**{"g." + k: v for k, v in
-                        state.net_g.state_dict().items()},
-                     **{"d." + k: v for k, v in
-                        state.net_d.state_dict().items()}})
-    assert runs[0].keys() == runs[1].keys()
-    for k in runs[0]:
-        assert torch.equal(runs[0][k], runs[1][k]), k
-
-
-@pytest.mark.parametrize("T", [12, 13, 40])
-def test_band_skew_equals_clamped_scatter_and_gather(T):
-    """The training attention adds its band by pads and reshapes
-    (`band_to_dense`, `dense_to_band`), where the JAX branch scatters and
-    gathers at clamped columns (tpu_rvc/nn/attention.py:206-225): the same
-    values and the same gradients, bit for bit, fp32 and bf16."""
-    from tpu_rvc_torch.nn.attention import band_to_dense, dense_to_band
-
-    W = 10
-    rng = np.random.default_rng(T)
-    rows = torch.arange(T)[:, None]
-    cols = rows + torch.arange(-W, W + 1)[None, :]
-    valid = ((cols >= 0) & (cols < T)).float()
-    cols_c = cols.clamp(0, T - 1).expand(2, 3, T, 2 * W + 1)
-    for dtype in (torch.float32, torch.bfloat16):
-        band0 = t(rng.standard_normal((2, 3, T, 2 * W + 1)).astype(
-            np.float32)).to(dtype)
-        dense0 = t(rng.standard_normal((2, 3, T, T)).astype(
-            np.float32)).to(dtype)
-        w_out = t(rng.standard_normal((2, 3, T, 2 * W + 1)).astype(
-            np.float32)).to(dtype)
-        results = []
-        for skew in (False, True):
-            band = band0.clone().requires_grad_()
-            dense = dense0.clone().requires_grad_()
-            if skew:
-                scores = dense + band_to_dense(band, W)
-                read = dense_to_band(scores.softmax(-1), W)
-            else:
-                scores = dense.scatter_add(-1, cols_c,
-                                           band * valid.to(dtype))
-                read = torch.gather(scores.softmax(-1), -1, cols_c) * \
-                    valid.to(dtype)
-            (read * w_out).float().sum().backward()
-            results.append((scores, read, band.grad, dense.grad))
-        for want, got in zip(*results):
-            assert torch.equal(got, want)
-
-
 def test_train_state_from_jax_inverts_the_jax_conversion(world):
     g_sd, d_sd = train_state_from_jax(world["g"], world["d"], "v1")
     for net, ref in ((world["state"].net_g, g_sd),
@@ -542,3 +462,73 @@ def test_trainer_entry_points_default_to_cuda(tmp_path):
                  lambda: main(["train", "--exp-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# two steps against tpu_rvc's, last in the module: the JAX side compiles in
+# its spawned process while the tests above run
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_matches_jax(world):
+    """Two pinned D-then-G steps against tpu_rvc's jitted step: every loss
+    term and both grad norms within 1e-3 relative at both steps; after
+    step 1 every parameter within 2 lr of the JAX one (Adam's first update
+    is +-lr an element, so a sign that flips on a near-zero gradient costs
+    2 lr), under 0.1% of them off by more than 1e-6."""
+    # a fresh trainer on the fixture's weights: the fixture's stays as it is
+    state = create_train_state(HP, device="cpu",
+                               g_state=world["state"].net_g.state_dict(),
+                               d_state=world["state"].net_d.state_dict())
+    b = world["batch"]
+    wants, after_1 = world["jax_steps"].result()
+    lr = HP.train.learning_rate
+    for i, want in enumerate(wants):
+        got = state.train_step(b)
+        for k in TERMS:
+            w, g = float(want[k]), float(got[k])
+            assert abs(g - w) <= 1e-3 * abs(w), f"step {i + 1} {k}: {g} vs {w}"
+        close(got["mel_org"], want["mel_org"], what="mel_org")
+        if i == 0:
+            for net, ref in zip((state.net_g, state.net_d), after_1):
+                own = net.state_dict()
+                assert set(own) == set(ref)
+                diff = torch.cat([(own[k] - ref[k]).abs().flatten()
+                                  for k in own])
+                assert float(diff.max()) <= 2 * lr * 1.01, float(diff.max())
+                assert float((diff > 1e-6).float().mean()) < 1e-3
+    assert state.step == 2
+
+
+def test_deterministic_step_is_reproducible_and_matches_jax(world):
+    """The step under `TrainState.deterministic` (`core/device.py`
+    `deterministic_math`): two fresh trainers on the fixture's weights take
+    the same two pinned steps bit for bit, each step's loss terms and grad
+    norms within 1e-3 relative of tpu_rvc's, and the caller's flags come
+    back after each step."""
+    flags = lambda: (torch.are_deterministic_algorithms_enabled(),  # noqa
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark,
+                     torch.utils.deterministic.fill_uninitialized_memory)
+    before = flags()
+    b = world["batch"]
+    wants, _ = world["jax_steps"].result()
+    runs = []
+    for _ in range(2):
+        state = create_train_state(HP, device="cpu",
+                                   g_state=world["state"].net_g.state_dict(),
+                                   d_state=world["state"].net_d.state_dict())
+        state.deterministic = True
+        for want in wants:
+            got = state.train_step(b)
+            assert flags() == before
+            for k in TERMS:
+                w, g = float(want[k]), float(got[k])
+                assert abs(g - w) <= 1e-3 * abs(w), f"{k}: {g} vs {w}"
+        runs.append({**{"g." + k: v for k, v in
+                        state.net_g.state_dict().items()},
+                     **{"d." + k: v for k, v in
+                        state.net_d.state_dict().items()}})
+    assert runs[0].keys() == runs[1].keys()
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k

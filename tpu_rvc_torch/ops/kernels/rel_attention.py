@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from .counts import launch_counts, launch_device, refuse_grad
+from .counts import active_count, launch_counts, launch_device, refuse_grad
 
 HEAD_WIDTHS = (32, 64, 96, 128)  # dk the kernel is built for
 MAX_WINDOW = 16
@@ -54,6 +54,16 @@ def banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v, lengths,
     return out + rel_w @ emb_rel_v
 
 
+def attention_flops(BH: int, T: int, dk: int, window: int = 10) -> int:
+    """The operations of one call at these shapes, as `FlopCounterMode`
+    counts them over the plain twin: the dense QK^T and PV, and the band's
+    Q.emb_rel_k^T and P.emb_rel_v, 2 per multiply-add.  Every key counts,
+    whatever `lengths` say: reading them would wait for the card, and the
+    twin computes every key too.  (`chip_smoke.py`'s bound counts only the
+    keys below each length: the least work a kernel could do.)"""
+    return 4 * BH * T * dk * (T + 2 * window + 1)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -69,10 +79,16 @@ def _kernel():
 def banded_rel_attention(q, k, v, emb_rel_k, emb_rel_v, lengths,
                          window: int = 10):
     """(BH, T, dk) fused attention, forward only.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.  Raises on any
-    device when grad mode is on and an input requires grad (`refuse_grad`):
-    the training forward runs nn/attention.py's differentiable branch."""
+    plain version; CUDA tensors launch the kernel or raise; inside
+    `counts.counting()` it counts `attention_flops` and returns zeros.
+    Raises on any device when grad mode is on and an input requires grad
+    (`refuse_grad`): the training forward runs nn/attention.py's
+    differentiable branch."""
     refuse_grad("banded_rel_attention", q, k, v, emb_rel_k, emb_rel_v)
+    count = active_count()
+    if count is not None:
+        count.add("banded_rel_attention", attention_flops(*q.shape, window), 1)
+        return torch.zeros_like(q)
     if q.device.type == "cpu":
         return banded_rel_attention_plain(q, k, v, emb_rel_k, emb_rel_v,
                                           lengths, window)

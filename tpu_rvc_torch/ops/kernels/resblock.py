@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import RESBLOCK_CHANNELS as CHANNELS  # widths it is built for
-from .counts import launch_counts, launch_device, refuse_grad
+from .counts import active_count, launch_counts, launch_device, refuse_grad
 
 LRELU_SLOPE = 0.1
 MAX_PAD = 32                       # (k - 1) / 2 * dilation at most
@@ -132,6 +132,28 @@ def stage_plain(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     return out[0] if x.dim() == 2 else out
 
 
+def stage_flops(C: int, T: int, kernel_sizes: Sequence[int],
+                N: int = 1) -> int:
+    """The operations of one stage over N streams of (C, T), as
+    `FlopCounterMode` counts them over `stage_plain`: six C x C convs of
+    width k a resblock, 2 per multiply-add, summed over the resblocks'
+    kernel sizes (3 + 7 + 11 for K2, the one k for K3)."""
+    return 2 * C * C * T * 6 * sum(kernel_sizes) * N
+
+
+def _counted(name: str, x: torch.Tensor, sw: StageWeights):
+    """Inside `counts.counting()`: the stage's operations and its 6 launches
+    a resblock counted, zeros returned; None outside it."""
+    count = active_count()
+    if count is None:
+        return None
+    C, T = x.shape[-2:]
+    N = 1 if x.dim() == 2 else x.shape[0]
+    count.add(name, stage_flops(C, T, sw.kernel_sizes, N),
+              2 * len(sw.dilations) * len(sw.kernel_sizes))
+    return torch.zeros_like(x)
+
+
 def _kernel(C: int):
     """The conv launcher of the library built for width C."""
     if C not in _fns:
@@ -216,10 +238,14 @@ def _refuse_grad(name: str, x: torch.Tensor, sw: StageWeights) -> None:
 def fused_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     """mean_r ResBlock1_r(x) for x (C, T) or (N, C, T), forward only.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (two
-    launches per resblock and dilation, whatever N) or raise.  Raises on
+    launches per resblock and dilation, whatever N) or raise; inside
+    `counts.counting()` it counts `stage_flops` and returns zeros.  Raises on
     any device when grad mode is on and an input requires grad: the
     training forward runs `ResBlock1.forward` (nn/generators.py)."""
     _refuse_grad("fused_stage", x, sw)
+    counted = _counted("fused_stage", x, sw)
+    if counted is not None:
+        return counted
     if x.device.type == "cpu":
         return stage_plain(x, sw)
     return _launch(x, sw, "fused_stage")
@@ -231,6 +257,9 @@ def fused_resblock(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     _refuse_grad("fused_resblock", x, sw)
     if len(sw.kernel_sizes) != 1:
         raise ValueError("fused_resblock takes one resblock's weights")
+    counted = _counted("fused_resblock", x, sw)
+    if counted is not None:
+        return counted
     if x.device.type == "cpu":
         return stage_plain(x, sw)
     return _launch(x, sw, "fused_resblock")

@@ -608,6 +608,30 @@ class FusedStreamGraph:
             self._f0_model = engine.f0_gen._get(f0method).model
         self._step = 0
         self._staging: Dict[str, Tuple[torch.Tensor, object]] = {}
+        # (segment shape, fed mask given) of the last call, for
+        # `last_graph_flops`
+        self._last_call: Optional[Tuple[Tuple[int, ...], bool]] = None
+
+    @torch.no_grad()
+    @fp32_math()
+    def last_graph_flops(self) -> Optional[float]:
+        """FLOPs of one `_block` at the last call's segment shape and
+        stream count (`utils/roofline.py`), or None before any call: the
+        MFU numerator of a block or a serving tick.  It runs the block once
+        more from a fresh state and a zero segment at the current step,
+        with the kernels counted and not launched; the streams' state and
+        the step counter stay as they were."""
+        if self._last_call is None:
+            return None
+        from tpu_rvc_torch.utils.roofline import graph_flops
+
+        seg_shape, with_fed = self._last_call
+        dev = self.engine.device
+        fed = (torch.ones(self.n_streams, dtype=torch.bool, device=dev)
+               if with_fed else None)
+        return graph_flops(self._block, self.init_state(),
+                           torch.zeros(seg_shape, device=dev), fed,
+                           self._step)
 
     def init_state(self) -> Dict[str, torch.Tensor]:
         dev = self.engine.device
@@ -711,6 +735,7 @@ class FusedStreamGraph:
         fed_dev = None
         if self.n_streams > 1 and fed is not None:
             fed_dev = self._upload("fed", np.ascontiguousarray(fed, bool))
+        self._last_call = (tuple(seg_dev.shape), fed_dev is not None)
         out, new_state = self._block(state, seg_dev, fed_dev, self._step)
         if self.n_streams == 1 and fed is not None and not fed:
             new_state = {k: v.clone() for k, v in state.items()}

@@ -356,6 +356,21 @@ class DeviceSeparator:
         self._pre = torch.from_numpy(_pre_filter_gain(p)).to(dev)
         self._gains = {d: torch.from_numpy(g).to(dev)
                        for d, g in _band_gains(p).items()}
+        self._last_len: Optional[int] = None   # the last call's bucket
+
+    @torch.no_grad()
+    @fp32_math()
+    @cudnn_autotune()
+    def last_graph_flops(self) -> Optional[float]:
+        """FLOPs of one `_graph` of the last call's bucket, on zeros
+        (`utils/roofline.py`), or None before any call: the MFU numerator
+        of a separation."""
+        if self._last_len is None:
+            return None
+        from tpu_rvc_torch.utils.roofline import graph_flops
+
+        return graph_flops(self._graph, torch.zeros(
+            (2, self._last_len), device=self.sep.device))
 
     def _run_net(self, x_pre: torch.Tensor, pad_l: int, pad_r: int,
                  n_win: int, roi: int, aggressiveness) -> torch.Tensor:
@@ -503,6 +518,7 @@ class DeviceSeparator:
         T4 = max(-(-T // bucket), 1) * bucket
         wav = torch.zeros((2, T4), dtype=torch.float32)
         wav[:, :T] = torch.from_numpy(mono)
+        self._last_len = T4
         ins, voc = self._graph(wav.to(self.sep.device))
         out_sr = p["sr"]
         n_out = min(int(ins.shape[0]), int(T * out_sr / sr))

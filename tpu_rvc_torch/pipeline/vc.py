@@ -32,6 +32,7 @@ estimator given in `f0_gen._estimators`.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -147,6 +148,30 @@ class Pipeline:
         self.t_max = int(SR * x_max)
         self.f0_gen = F0Generator(rmvpe_root, x_pad, window=WINDOW, sr=SR,
                                   device=self.device)
+        # the shapes and settings of the last `_full_rows` call, for
+        # `last_graph_flops` (no tensor of the call is kept)
+        self._last_full_call: Optional[dict] = None
+
+    def last_graph_flops(self) -> Optional[float]:
+        """FLOPs of one call of the most recent `_full_rows` graph at that
+        call's shapes and settings (rows, length, f0 method, index on or
+        off, protect, RMS mix; `utils/roofline.py`), or None before any
+        call: the MFU numerator.  It runs the graph once more on zero
+        inputs on the pipeline's device, with the kernels counted and not
+        launched, drawing its noise from generators of its own."""
+        if self._last_full_call is None:
+            return None
+        from tpu_rvc_torch.utils.roofline import graph_flops
+
+        c = dict(self._last_full_call)
+        n, L = c.pop("shape")
+        index = c.pop("index")
+        zeros = functools.partial(torch.zeros, device=self.device)
+        return graph_flops(functools.partial(
+            self._full_rows, zeros((n, L)), sids=[0] * n,
+            index_arrays=None if index is None else tuple(
+                zeros(s) for s in index),
+            generators=[self._generator(0) for _ in range(n)], **c))
 
     # ------------------------------------------------------------------
     def _index_arrays(self, index: Optional[FeatureIndex], index_rate: float):
@@ -221,6 +246,12 @@ class Pipeline:
         audio: (n, L), padded up to the 1 s bucket inside -> int16
         (n, samples), each row peak-scaled on its own."""
         n, L = audio.shape
+        self._last_full_call = dict(
+            shape=(n, L), f0_up_key=f0_up_key, use_f0=use_f0,
+            index=None if index_arrays is None else tuple(
+                tuple(t.shape) for t in index_arrays),
+            index_rate=index_rate, protect=protect,
+            rms_mix_rate=rms_mix_rate, f0_method=f0_method)
         bucket = _bucket(L)
         p_len = L // WINDOW
         p_len_static = min(bucket // WINDOW, _feat_frames(bucket))

@@ -44,6 +44,7 @@ fp32 with TF32 off (`fp32_math`), as the inference entry points are.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, List, Optional
 
 import torch
@@ -192,6 +193,17 @@ class TrainState:
         for p in params:
             p.grad = None
         return norm
+
+    def step_flops(self, batch: Dict) -> float:
+        """FLOPs of one `train_step` on `batch` (`utils/roofline.py`), the
+        MFU numerator of a step.  The step runs on a copy of this state,
+        which does not advance; a state in a process group is refused (the
+        copy would share its group)."""
+        if self.group is not None:
+            raise ValueError("step_flops: the state is in a process group")
+        from tpu_rvc_torch.utils.roofline import graph_flops
+
+        return graph_flops(copy.deepcopy(self).train_step, batch)
 
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with (deterministic_math() if self.deterministic
