@@ -162,7 +162,7 @@ def test_vc_get_vc_from_pth_matches_jax(models, tmp_path, monkeypatch):
 def test_conversion_runs_in_fp32_with_stage_spans(models, pipelines):
     """TF32 is off for cuDNN and cuBLAS inside a conversion and the
     caller's flags come back after it; the stage spans of a CPU pipeline
-    read the host clock."""
+    read the host clock, and the host's own stages have spans."""
     _, port_pipe = pipelines
     seen = []
 
@@ -186,7 +186,9 @@ def test_conversion_runs_in_fp32_with_stage_spans(models, pipelines):
     assert seen == [(False, False)] * 2
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32) == before
-    assert set(stages) == {"f0", "hubert", "enc_p", "flow", "decoder"}
+    names = {"split", "upload", "f0", "hubert", "enc_p", "flow", "decoder",
+             "fetch"}
+    assert set(stages) == names | {"host." + n for n in names}
     assert all(ms > 0 for ms in stages.values())
 
 

@@ -12,7 +12,6 @@ import functools
 import json
 import math
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +22,6 @@ from torch.utils._pytree import tree_map
 from torch.utils.flop_counter import FlopCounterMode
 
 from tpu_rvc.models.synthesizer import Synthesizer as JaxSynthesizer
-from tpu_rvc.utils import profiling as jax_profiling
 from tpu_rvc.utils.roofline import graph_flops as jax_graph_flops
 
 from tpu_rvc_torch.ckpt.convert import synthesizer_state_from_reference
@@ -496,23 +494,6 @@ def train_batch(hp, B=2, T=24):
 # ---------------------------------------------------------------------------
 # profiling
 # ---------------------------------------------------------------------------
-
-
-def test_phase_timer_and_epoch_recorder_match_jax():
-    """The same phases through both packages' PhaseTimer give the same
-    names, counts and report layout; EpochRecorder's line has the JAX
-    one's form."""
-    timers = profiling.PhaseTimer(), jax_profiling.PhaseTimer()
-    for timer in timers:
-        for name in ("f0", "infer", "f0"):
-            with timer.phase(name):
-                pass
-    assert timers[0].counts == timers[1].counts == {"f0": 2, "infer": 1}
-    form = lambda r: re.sub(r"\d+\.\d+", "X", r)  # noqa: E731
-    assert form(timers[0].report()) == form(timers[1].report())
-    line = r"^\[\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\] \| \(\d+\.\d\)s\)$"
-    for rec in (profiling.EpochRecorder(), jax_profiling.EpochRecorder()):
-        assert re.match(line.replace(r"\)s", "s"), rec.record())
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

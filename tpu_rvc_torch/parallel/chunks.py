@@ -101,7 +101,7 @@ def convert_long(pipeline, sid: int, audio: np.ndarray, mesh: Mesh, *,
     mesh.  Same arguments and output contract as `Pipeline.pipeline`;
     audio that fits one chunk takes the sequential path."""
     audio_raw = np.asarray(audio, np.float32)
-    with span("split", "cpu"):   # host work, on the host clock
+    with span("split"):   # host work, on the host clock
         audio = highpass_filter(audio_raw)
         opt_ts = silence_chunk_bounds(audio, pipeline.t_center,
                                       pipeline.t_query, pipeline.t_max)
@@ -150,11 +150,12 @@ def convert_long(pipeline, sid: int, audio: np.ndarray, mesh: Mesh, *,
                 None if pit_rows is None else pit_rows[grp],
                 None if pitf_rows is None else pitf_rows[grp], index,
                 index_rate, protect, noise_seed))
-    out = np.concatenate([p.cpu().numpy() for p in parts])
+    with span("fetch"):
+        out = np.concatenate([p.cpu().numpy() for p in parts])
 
     # host assembly: trim each chunk's pads, join (reference :241, :295),
     # then the sequential path's last steps
-    with span("assemble", "cpu"):
+    with span("assemble"):
         out = out.astype(np.float32) / 32767.0
         hop = math.prod(pipeline.synth.upsample_rates)
         t_pad_tgt = pipeline.t_pad_tgt

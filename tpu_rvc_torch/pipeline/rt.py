@@ -704,22 +704,23 @@ class FusedStreamGraph:
         work already queued (a copy from pageable memory would), so a
         caller that left the last block's output on the device can prepare
         and queue the next block while that one still runs."""
-        dev = self.engine.device
-        src = torch.from_numpy(host)
-        if dev.type != "cuda":
-            return src.to(dev)
-        slot = self._staging.get(name)
-        if slot is None or slot[0].shape != src.shape \
-                or slot[0].dtype != src.dtype:
-            slot = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True),
-                    torch.cuda.Event())
-            self._staging[name] = slot
-        buf, copied = slot
-        copied.synchronize()   # the buffer's last copy has left it
-        buf.copy_(src)
-        out = buf.to(dev, non_blocking=True)
-        copied.record()
-        return out
+        with span("upload"):
+            dev = self.engine.device
+            src = torch.from_numpy(host)
+            if dev.type != "cuda":
+                return src.to(dev)
+            slot = self._staging.get(name)
+            if slot is None or slot[0].shape != src.shape \
+                    or slot[0].dtype != src.dtype:
+                slot = (torch.empty(src.shape, dtype=src.dtype,
+                                    pin_memory=True), torch.cuda.Event())
+                self._staging[name] = slot
+            buf, copied = slot
+            copied.synchronize()   # the buffer's last copy has left it
+            buf.copy_(src)
+            out = buf.to(dev, non_blocking=True)
+            copied.record()
+            return out
 
     @torch.no_grad()
     @fp32_math()
@@ -739,4 +740,7 @@ class FusedStreamGraph:
         out, new_state = self._block(state, seg_dev, fed_dev, self._step)
         if self.n_streams == 1 and fed is not None and not fed:
             new_state = {k: v.clone() for k, v in state.items()}
-        return (out.cpu().numpy() if fetch else out), new_state
+        if fetch:
+            with span("fetch"):
+                out = out.cpu().numpy()
+        return out, new_state

@@ -35,6 +35,7 @@ import torch
 
 from tpu_rvc_torch.pipeline.rt import (BlockGeometry, FusedStreamGraph,
                                        RealtimeVC, sola_merge)
+from tpu_rvc_torch.utils.timing import span
 
 
 class _ChunkQueue:
@@ -88,12 +89,12 @@ class _Fetch:
     after it; `result()` waits on that event only.  The tick thread goes
     on to prepare and queue the next block meanwhile.  Without a side
     stream (serial mode, or an engine on the CPU, where the audio is host
-    memory already) the copy is made here and now."""
+    memory already) `result()` waits for the card and copies."""
 
     def __init__(self, out: torch.Tensor, side_stream=None):
         self._done = None
         if side_stream is None:
-            self._host = out.cpu()
+            self._host = out
             return
         self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         side_stream.wait_stream(torch.cuda.current_stream(out.device))
@@ -104,9 +105,10 @@ class _Fetch:
         out.record_stream(side_stream)
 
     def result(self) -> np.ndarray:
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host.numpy()
+        with span("fetch"):
+            if self._done is not None:
+                self._done.synchronize()
+            return self._host.cpu().numpy()
 
 
 class SlotScheduler:
@@ -253,56 +255,57 @@ class SlotScheduler:
         count (the stream must keep its realtime cadence, reference
         gui.py:1099-1126).  Slots that are idle or not due yet ride along
         as zeros with their device state frozen (`fed` false)."""
-        bf = self.block_frame
-        now = self._clock()
-        with self._lock:
-            resets = sorted(self._pending_reset)
-            self._pending_reset.clear()
-            fed: List[bool] = []
-            for s in range(self.n_slots):
-                if self.active[s] and len(self._in_buf[s]) >= bf:
-                    block = self._in_buf[s].pop(bf)
-                    self._last_fed[s] = now
-                    fed.append(True)
-                elif (self.active[s] and self.started[s]
-                      and now - self._last_fed[s] >= self.block_time):
-                    block = np.zeros(bf, np.float32)
-                    self.underruns[s] += 1
-                    self._last_fed[s] = now
-                    fed.append(True)
-                else:
-                    fed.append(False)
-                    continue
-                self.input_wav[s, :-bf] = self.input_wav[s, bf:]
-                self.input_wav[s, -bf:] = block
-            # a copy: the block below runs unlocked and must not see a
-            # concurrent attach() zeroing a row
-            seg = self.input_wav[:, -bf - 2 * self.zc:].copy()
-            gen = list(self._gen)
+        with span("tick", root=True):
+            bf = self.block_frame
+            now = self._clock()
+            with span("pop"), self._lock:
+                resets = sorted(self._pending_reset)
+                self._pending_reset.clear()
+                fed: List[bool] = []
+                for s in range(self.n_slots):
+                    if self.active[s] and len(self._in_buf[s]) >= bf:
+                        block = self._in_buf[s].pop(bf)
+                        self._last_fed[s] = now
+                        fed.append(True)
+                    elif (self.active[s] and self.started[s]
+                          and now - self._last_fed[s] >= self.block_time):
+                        block = np.zeros(bf, np.float32)
+                        self.underruns[s] += 1
+                        self._last_fed[s] = now
+                        fed.append(True)
+                    else:
+                        fed.append(False)
+                        continue
+                    self.input_wav[s, :-bf] = self.input_wav[s, bf:]
+                    self.input_wav[s, -bf:] = block
+                # a copy: the block below runs unlocked and must not see a
+                # concurrent attach() zeroing a row
+                seg = self.input_wav[:, -bf - 2 * self.zc:].copy()
+                gen = list(self._gen)
 
-        # the device state is touched ONLY here, on the tick thread
-        for s in resets:
-            for v in self.state.values():
-                (v if self.n_slots == 1 else v[s]).zero_()
-        if not any(fed):  # nothing due: no block
-            self._drain_inflight()  # deliver a pending pipelined block
+            # the device state is touched ONLY here, on the tick thread
+            for s in resets:
+                for v in self.state.values():
+                    (v if self.n_slots == 1 else v[s]).zero_()
+            if not any(fed):  # nothing due: no block
+                self._drain_inflight()  # deliver a pending pipelined block
+                return self._count_tick()
+            if self.n_slots == 1:
+                out, self.state = self.fused(self.state, seg[0], fed=fed[0],
+                                             fetch=False)
+                out = out[None]
+            else:
+                out, self.state = self.fused(self.state, seg,
+                                             fed=np.asarray(fed), fetch=False)
+            fetch = _Fetch(out, self._side_stream)
+            if self.pipelined:
+                # this tick's fetch is on its way; deliver LAST tick's block
+                self._inflight, prev = (fetch, fed, gen), self._inflight
+                if prev is not None:
+                    self._deliver(prev[0].result(), prev[1], prev[2])
+            else:
+                self._deliver(fetch.result(), fed, gen)
             return self._count_tick()
-        if self.n_slots == 1:
-            out, self.state = self.fused(self.state, seg[0], fed=fed[0],
-                                         fetch=False)
-            out = out[None]
-        else:
-            out, self.state = self.fused(self.state, seg,
-                                         fed=np.asarray(fed), fetch=False)
-        fetch = _Fetch(out, self._side_stream)
-        if self.pipelined:
-            # this tick's fetch is on its way; deliver LAST tick's block
-            self._inflight, prev = (fetch, fed, gen), self._inflight
-            if prev is not None:
-                self._deliver(prev[0].result(), prev[1], prev[2])
-        else:
-            self._deliver(fetch.result(), fed, gen)
-        return self._count_tick()
 
     def _count_tick(self) -> Dict[str, object]:
         with self._lock:
@@ -324,7 +327,7 @@ class SlotScheduler:
     def _deliver(self, out: np.ndarray, fed, gen) -> None:
         """SOLA-merge and queue one block's output (tick thread only)."""
         bf = self.block_frame
-        with self._lock:
+        with span("sola"), self._lock:
             for s in range(self.n_slots):
                 # a slot attached anew during the block must not get the
                 # previous occupant's audio

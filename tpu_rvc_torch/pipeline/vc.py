@@ -334,10 +334,12 @@ class Pipeline:
         pipeline's device); the draws move to the device, so a CPU
         generator gives one conversion on any card (ckpt/hash.py)."""
         use_f0 = bool(if_f0)
-        audio = highpass_filter(np.asarray(audio, np.float32))
-        opt_ts = silence_chunk_bounds(audio, self.t_center, self.t_query,
-                                      self.t_max)
-        audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
+        with span("split"):
+            audio = highpass_filter(np.asarray(audio, np.float32))
+            opt_ts = silence_chunk_bounds(audio, self.t_center, self.t_query,
+                                          self.t_max)
+            audio_pad = np.pad(audio, (self.t_pad, self.t_pad),
+                               mode="reflect")
         index_arrays = self._index_arrays(index, index_rate)
 
         if not opt_ts and f0_file is None and (
@@ -349,12 +351,14 @@ class Pipeline:
             L = _bucket(L_true)
             if L != L_true:
                 extra = L - L_true
-                audio_pad = np.pad(audio_pad, (0, extra), mode=(
-                    "reflect" if extra < L_true else "constant"))
+                with span("split"):
+                    audio_pad = np.pad(audio_pad, (0, extra), mode=(
+                        "reflect" if extra < L_true else "constant"))
             t0 = time.time()
-            out = self._full(torch.as_tensor(audio_pad, device=self.device),
-                             float(f0_up_key), sid, use_f0, index_arrays,
-                             index_rate, protect, rms_mix_rate,
+            with span("upload"):
+                audio_dev = torch.as_tensor(audio_pad, device=self.device)
+            out = self._full(audio_dev, float(f0_up_key), sid, use_f0,
+                             index_arrays, index_rate, protect, rms_mix_rate,
                              self._generator(noise_seed, noise_device),
                              f0_method)
             if L != L_true:
@@ -366,11 +370,13 @@ class Pipeline:
                 out = resample_poly(out.float()[None] / 32768.0,
                                     self.tgt_sr, resample_sr)[0]
                 out = torch.clamp(out * 32768.0, -32768, 32767).to(torch.int16)
-            result = out.cpu().numpy()  # the one device->host fetch
+            with span("fetch"):
+                result = out.cpu().numpy()  # the one device->host fetch
             times[2] += time.time() - t0
             return result
 
-        audio_pad_dev = torch.as_tensor(audio_pad, device=self.device)
+        with span("upload"):
+            audio_pad_dev = torch.as_tensor(audio_pad, device=self.device)
         p_len = audio_pad.shape[0] // WINDOW
         pitch = pitchf = None
         if use_f0:
@@ -405,8 +411,10 @@ class Pipeline:
                                 noise_device)
             audio_opt.append(out[self.t_pad_tgt: out.shape[0]
                                  - self.t_pad_tgt])
-        return self.finish(torch.cat(audio_opt).cpu().numpy(), audio,
-                           rms_mix_rate, resample_sr)
+        with span("fetch"):
+            result = torch.cat(audio_opt).cpu().numpy()
+        with span("assemble"):
+            return self.finish(result, audio, rms_mix_rate, resample_sr)
 
     def finish(self, result: np.ndarray, audio16: np.ndarray,
                rms_mix_rate: float, resample_sr: int) -> np.ndarray:
@@ -421,7 +429,9 @@ class Pipeline:
         if self.tgt_sr != resample_sr and resample_sr >= SR:
             result = resample_poly(
                 torch.as_tensor(result[None], device=self.device),
-                self.tgt_sr, resample_sr)[0].cpu().numpy()
+                self.tgt_sr, resample_sr)[0]
+            with span("fetch"):
+                result = result.cpu().numpy()
         audio_max = np.abs(result).max() / 0.99
         max_int16 = 32768.0
         if audio_max > 1:
@@ -492,31 +502,33 @@ class VC:
 
         if self.pipeline is None:
             raise RuntimeError("call get_vc first")
-        audio = load_audio(input_audio_path, SR)
-        if len(audio) == 0:
-            raise ValueError(f"{input_audio_path}: empty audio")
-        audio_max = np.abs(audio).max() / 0.95
-        if audio_max > 1:
-            audio = audio / audio_max
-        times = [0.0, 0.0, 0.0]
-        if chunk_parallel and f0_file is None:
-            from tpu_rvc_torch.core.mesh import make_mesh
-            from tpu_rvc_torch.parallel.chunks import convert_long
-            mesh = (make_mesh() if self.device.type == "cuda"
-                    else make_mesh(devices=[self.device]))
-            t0 = time.time()
-            out = convert_long(
-                self.pipeline, sid, audio, mesh, f0_up_key=f0_up_key,
-                f0_method=f0_method, index=index, index_rate=index_rate,
-                if_f0=self.if_f0, filter_radius=filter_radius,
-                resample_sr=resample_sr, rms_mix_rate=rms_mix_rate,
-                protect=protect)
-            times[2] += time.time() - t0
-        else:
-            out = self.pipeline.pipeline(
-                sid, audio, times, f0_up_key, f0_method, index, index_rate,
-                self.if_f0, filter_radius, resample_sr, rms_mix_rate,
-                protect, f0_file)
+        with span("call", root=True):
+            with span("load"):
+                audio = load_audio(input_audio_path, SR)
+                if len(audio) == 0:
+                    raise ValueError(f"{input_audio_path}: empty audio")
+                audio_max = np.abs(audio).max() / 0.95
+                if audio_max > 1:
+                    audio = audio / audio_max
+            times = [0.0, 0.0, 0.0]
+            if chunk_parallel and f0_file is None:
+                from tpu_rvc_torch.core.mesh import make_mesh
+                from tpu_rvc_torch.parallel.chunks import convert_long
+                mesh = (make_mesh() if self.device.type == "cuda"
+                        else make_mesh(devices=[self.device]))
+                t0 = time.time()
+                out = convert_long(
+                    self.pipeline, sid, audio, mesh, f0_up_key=f0_up_key,
+                    f0_method=f0_method, index=index, index_rate=index_rate,
+                    if_f0=self.if_f0, filter_radius=filter_radius,
+                    resample_sr=resample_sr, rms_mix_rate=rms_mix_rate,
+                    protect=protect)
+                times[2] += time.time() - t0
+            else:
+                out = self.pipeline.pipeline(
+                    sid, audio, times, f0_up_key, f0_method, index, index_rate,
+                    self.if_f0, filter_radius, resample_sr, rms_mix_rate,
+                    protect, f0_file)
         tgt = (resample_sr if self.tgt_sr != resample_sr and
                resample_sr >= SR else self.tgt_sr)
         info = (f"npy: {times[0]:.2f}s, f0: {times[1]:.2f}s, "

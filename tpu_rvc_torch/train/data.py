@@ -30,6 +30,7 @@ import torch
 from tpu_rvc_torch.audio.io import load_wav
 from tpu_rvc_torch.core.config import HParams
 from tpu_rvc_torch.ops.mel import spectrogram
+from tpu_rvc_torch.utils.timing import span
 
 BUCKETS = (100, 200, 300, 400, 500, 600, 700, 800, 900)
 MUTE_DIR = Path(__file__).parent.parent / "assets" / "mute"
@@ -244,7 +245,7 @@ class BucketBatcher:
 
     def epoch(self, epoch_idx: int) -> Iterator[Dict[str, np.ndarray]]:
         for bucket, group in self._plans(epoch_idx, self.rank, self.world):
-            yield self._collate([self.ds.load(i) for i in group], bucket)
+            yield self._collate(self._load(group), bucket)
 
     def epoch_local_slice(self, epoch_idx: int, rank: int,
                           world: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -260,34 +261,39 @@ class BucketBatcher:
                 f"global batch_size {self.batch_size} not divisible by "
                 f"process count {world}")
         for bucket, group in self._plans(epoch_idx, 0, 1):
-            yield self._collate(
-                [self.ds.load(i) for i in group[rank::world]], bucket)
+            yield self._collate(self._load(group[rank::world]), bucket)
+
+    def _load(self, group: List[int]) -> List[Dict]:
+        with span("load"):
+            return [self.ds.load(i) for i in group]
 
     def _collate(self, items: List[Dict], bucket: int) -> Dict[str, np.ndarray]:
-        B = len(items)
-        d = self.ds.hp.data
-        D = items[0]["phone"].shape[1]
-        F = items[0]["spec"].shape[1]
-        batch = {
-            "phone": np.zeros((B, bucket, D), np.float32),
-            "phone_lengths": np.zeros((B,), np.int32),
-            "spec": np.zeros((B, bucket, F), np.float32),
-            "spec_lengths": np.zeros((B,), np.int32),
-            "wave": np.zeros((B, bucket * d.hop_length, 1), np.float32),
-            "sid": np.zeros((B,), np.int32),
-        }
-        if self.ds.if_f0:
-            batch["pitch"] = np.zeros((B, bucket), np.int32)
-            batch["pitchf"] = np.zeros((B, bucket), np.float32)
-        for j, it in enumerate(items):
-            n = min(it["n_frames"], bucket)
-            batch["phone"][j, :n] = it["phone"][:n]
-            batch["spec"][j, :n] = it["spec"][:n]
-            batch["wave"][j, :n * d.hop_length, 0] = it["wave"][:n * d.hop_length]
-            batch["phone_lengths"][j] = n
-            batch["spec_lengths"][j] = n
-            batch["sid"][j] = it["sid"]
+        with span("collate"):
+            B = len(items)
+            d = self.ds.hp.data
+            D = items[0]["phone"].shape[1]
+            F = items[0]["spec"].shape[1]
+            batch = {
+                "phone": np.zeros((B, bucket, D), np.float32),
+                "phone_lengths": np.zeros((B,), np.int32),
+                "spec": np.zeros((B, bucket, F), np.float32),
+                "spec_lengths": np.zeros((B,), np.int32),
+                "wave": np.zeros((B, bucket * d.hop_length, 1), np.float32),
+                "sid": np.zeros((B,), np.int32),
+            }
             if self.ds.if_f0:
-                batch["pitch"][j, :n] = it["pitch"][:n]
-                batch["pitchf"][j, :n] = it["pitchf"][:n]
-        return batch
+                batch["pitch"] = np.zeros((B, bucket), np.int32)
+                batch["pitchf"] = np.zeros((B, bucket), np.float32)
+            for j, it in enumerate(items):
+                n = min(it["n_frames"], bucket)
+                batch["phone"][j, :n] = it["phone"][:n]
+                batch["spec"][j, :n] = it["spec"][:n]
+                w = n * d.hop_length
+                batch["wave"][j, :w, 0] = it["wave"][:w]
+                batch["phone_lengths"][j] = n
+                batch["spec_lengths"][j] = n
+                batch["sid"][j] = it["sid"]
+                if self.ds.if_f0:
+                    batch["pitch"][j, :n] = it["pitch"][:n]
+                    batch["pitchf"][j, :n] = it["pitchf"][:n]
+            return batch

@@ -116,13 +116,14 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """numpy or tensors -> tensors on `device`; host arrays go through
     pinned memory, so the copy does not wait for the queued step."""
     out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        if t.device != torch.device(device):
-            if torch.device(device).type == "cuda":
-                t = t.pin_memory()
-            t = t.to(device, non_blocking=True)
-        out[k] = t
+    with span("upload"):
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.device != torch.device(device):
+                if torch.device(device).type == "cuda":
+                    t = t.pin_memory()
+                t = t.to(device, non_blocking=True)
+            out[k] = t
     return out
 
 
@@ -206,8 +207,9 @@ class TrainState:
         return graph_flops(copy.deepcopy(self).train_step, batch)
 
     def train_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        with (deterministic_math() if self.deterministic
-              else contextlib.nullcontext()):
+        with span("step", root=True), (
+                deterministic_math() if self.deterministic
+                else contextlib.nullcontext()):
             return self._train_step(batch)
 
     @fp32_math()

@@ -1,7 +1,7 @@
-"""Phase timing and device tracing (the counterpart of
-tpu_rvc/utils/profiling.py): the reference's coarse wall-clock
-accumulators (`times=[npy, f0, infer]` and EpochRecorder) and a
-`torch.profiler` trace for device timelines.
+"""Device tracing (the counterpart of tpu_rvc/utils/profiling.py's
+`device_trace`): a `torch.profiler` trace of a block as a Chrome trace,
+with the program's stages on it as `tpu_rvc_torch.<name>` marks while
+`utils/timing.py` is enabled.  Stage timing itself is `utils/timing.py`.
 """
 
 from __future__ import annotations
@@ -9,45 +9,9 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
-
-
-class PhaseTimer:
-    """Accumulating named phase timer (the reference's times[] role,
-    infer/modules/vc/pipeline.py:107)."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        return ", ".join(
-            f"{k}: {v:.3f}s/{self.counts[k]}x" for k, v in self.totals.items())
-
-
-class EpochRecorder:
-    """Per-epoch elapsed time (reference train.py:89-99)."""
-
-    def __init__(self):
-        self.last = time.time()
-
-    def record(self) -> str:
-        now = time.time()
-        elapsed = now - self.last
-        self.last = now
-        return f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] | ({elapsed:.1f}s)"
 
 
 @contextlib.contextmanager
