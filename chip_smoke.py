@@ -19,7 +19,11 @@ Phases, one line of output each (any failure exits non-zero):
      T % 4 != 0 takes the kernel's scalar staging path; and K2 with a
      stream axis of 8 at v1/32k's five streaming levels (C = 16 at
      (8, 16, 9600)), at v2/40k's four and at those two unaligned shapes,
-     bit for bit against stream-by-stream launches as in 11;
+     bit for bit against stream-by-stream launches as in 11; K4 (RMVPE's
+     BiGRU) at its callers' (B, T): (1, 5600), (1, 32), (32, 32) and (4,
+     7904), within 2e-5 of its twin and of cuDNN's GRU, each row bit for
+     bit against that row launched alone, with the wrapper's, the
+     kernel's, the twin's and cuDNN's ms;
   3. end to end through the user's entry points: a random-weight v2/48k
      small model `.pth` in the reference layout, a random 10k x 768 index,
      a synthetic 10 s WAV; VC(hubert_path="random").get_vc(path) and
@@ -377,16 +381,26 @@ R1_ROWS = []    # one row a counted path
 R1_CPU = {}     # f0 method -> {"cuda": FLOPs, "cpu": FLOPs} (against_cpu)
 
 
-def kernel_flops(attn=None, stages=(), ks=(3, 7, 11), N=1, layers=6):
+def kernel_flops(attn=None, stages=(), ks=(3, 7, 11), N=1, layers=6,
+                 gru=None):
     """The kernels' formulas summed over one call's launches: `layers` K1
-    at `attn` (BH, T, dk) and one K2 stage (its 18 launches) at each
-    (C, T) of `stages`, for N streams."""
-    from tpu_rvc_torch.ops.kernels import attention_flops, stage_flops
+    at `attn` (BH, T, dk), one K2 stage (its 18 launches) at each (C, T)
+    of `stages`, for N streams, and K4 at `gru` (B, T) (RMVPE's call)."""
+    from tpu_rvc_torch.ops.kernels import (attention_flops, bigru_flops,
+                                           stage_flops)
 
     return {"banded_rel_attention": (layers * attention_flops(*attn)
                                      if attn else 0),
             "fused_stage": sum(stage_flops(C, T, ks, N) for C, T in stages),
-            "fused_resblock": 0}
+            "fused_resblock": 0,
+            "bigru": bigru_flops(*gru, 384) if gru else 0}
+
+
+def gru_steps(n16):
+    """The GRU's T for RMVPE on n16 samples at 16 kHz: the mel frames of
+    a hop of 160 (centred), padded to a multiple of 32
+    (`f0/rmvpe.py` `rmvpe_salience`)."""
+    return 32 * ((n16 // 160) // 32 + 1)
 
 
 def count_path(path, count, wall_ms, dtype, launches, kernels):
@@ -602,10 +616,97 @@ def kernel_entry(name, line, rows, stream_rows, batch_rows, **extra):
             **extra}
 
 
+# RMVPE's GRU (B, T) as its callers give it: a 56 s offline bucket, one
+# streaming block, a tick of 32 streams, 4 rows of a 79 s bucket
+GRU_SHAPES = {"offline": (1, 5600), "stream": (1, 32), "batch": (32, 32),
+              "rows4": (4, 7904)}
+GRU_ATOL = 2e-5   # outputs in (-1, 1); fp32 sums in another order
+
+
+def check_bigru(g):
+    """K4 at each of GRU_SHAPES against its plain twin and cuDNN's GRU
+    (TF32 off), within GRU_ATOL, and a batch row for row against each row
+    launched alone, bit for bit; the wrapper's ms (the projection's
+    product and the kernel), the kernel's alone, the twin's, cuDNN's and
+    the bound of the wrapper's work at the fp32 FMA units' peak ->
+    the K4 entry of the `kernels` line."""
+    from tpu_rvc_torch.ops.kernels import bigru, bigru_flops, bigru_plain
+    from tpu_rvc_torch.ops.kernels.bigru import _kernel, _params, _projection
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        gru = torch.nn.GRU(384, 256, batch_first=True, bidirectional=True)
+    gru = gru.cuda().eval().requires_grad_(False)
+    weights = [p.data_ptr() for p in _params(gru)[4:]]
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {}
+    with torch.no_grad():
+        for path, (B, T) in GRU_SHAPES.items():
+            x = torch.randn(B, T, 384, generator=g, device="cuda")
+            got = bigru(x, gru)
+            want = bigru_plain(x, gru)
+            cudnn = gru(x)[0]
+            torch.cuda.synchronize()
+            max_abs, max_rel = compare(got, want, 0.0, GRU_ATOL,
+                                       f"bigru {path} ({B}, {T})")
+            cudnn_abs = float((got - cudnn).abs().max())
+            if not cudnn_abs <= GRU_ATOL:
+                raise AssertionError(f"bigru {path} ({B}, {T}): {cudnn_abs} "
+                                     "from cuDNN's GRU")
+            gi = _projection(x, gru)
+            y = torch.empty_like(got)
+            alone = lambda: _kernel()(  # noqa: E731
+                gi.data_ptr(), *weights, y.data_ptr(), B, T, stream)
+            if B > 1:   # from one gi: the product may sum rows otherwise
+                each = torch.empty_like(got)
+                rcs = [alone()] + [_kernel()(
+                    gi[b].data_ptr(), *weights, each[b].data_ptr(), 1, T,
+                    stream) for b in range(B)]
+                if any(rcs) or not torch.equal(y, each):
+                    raise AssertionError(
+                        f"bigru {path} ({B}, {T}): rows differ from their "
+                        f"own launches by {float((y - each).abs().max())} "
+                        f"(CUDA errors {set(rcs)})")
+            flops = bigru_flops(B, T, 384)
+            # x, gi written and read, y; both directions' weights
+            nbytes = 4 * (B * T * (384 + 2 * 1536 + 512)
+                          + 2 * 768 * (384 + 256 + 2))
+            t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+            row = dict(B=B, T=T, max_abs_err=max_abs, max_rel_err=max_rel,
+                       cudnn_max_abs_err=cudnn_abs,
+                       rows_equal_own_launches_bitwise=B > 1 or None,
+                       ms=median_ms(lambda: bigru(x, gru), iters=20),
+                       kernel_ms=median_ms(alone, iters=20),
+                       plain_ms=median_ms(lambda: bigru_plain(x, gru),
+                                          iters=3),
+                       library_ms=median_ms(lambda: gru(x), iters=5),
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes
+                       else "bytes")
+            row["kernel_us_per_step"] = row["kernel_ms"] * 1e3 / T
+            say("kernel", name="bigru", path=path, **row)
+            rows[path] = row
+            del x, got, want, cudnn, gi, y
+    off = rows["offline"]
+    return {"name": "bigru", "route": "cuda",
+            "source": "tpu_rvc_torch/csrc/bigru.cu",
+            "replaces": "none (tpu_rvc/models/rmvpe.py:184 `_bigru_fused`, "
+                        "a lax.scan)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "cudnn_max_abs_err": max(r["cudnn_max_abs_err"]
+                                     for r in rows.values()),
+            **{k: off[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "bound_fp32_fma_ms": off["bound_ms"], "math": "fp32",
+            "library": "cuDNN's nn.GRU, TF32 off (no longer called)",
+            "shapes": rows}
+
+
 def check_kernels():
     """Phases 2, 6 and 11: every kernel against its plain twin at the
     offline shapes, at the streaming shapes and at those of a serving tick
-    of BATCH_N streams -> the entries of the `kernels` line."""
+    of BATCH_N streams, and K4 at its callers' shapes -> the entries of
+    the `kernels` line."""
     from tpu_rvc_torch.ops import kernels as kr
     from tpu_rvc_torch.ops.kernels import resblock as rs
 
@@ -640,7 +741,8 @@ def check_kernels():
                      batch_per_stage_ms=[r[1] for r in b2],
                      **family["fused_stage"]),
         kernel_entry("fused_resblock", "tpu_rvc/ops/pallas/resblock.py:237",
-                     k3, s3, b3, **family["fused_resblock"])]
+                     k3, s3, b3, **family["fused_resblock"]),
+        check_bigru(g)]
 
 
 def preset_levels(version, sr, frames=1598):
@@ -811,22 +913,24 @@ def expected_len(n16, x_pad, hop, tgt_sr):
     return frames * hop - 2 * int(tgt_sr * x_pad)
 
 
-def want_launches(hp, calls=1, n_rb=None):
+def want_launches(hp, calls=1, n_rb=None, gru=0):
     """K1 and K2 (or K3 on a one-resblock model) launches of `calls`
     device calls of `Synthesizer.infer`: 6 K1 and 18 K2 a decoder level
-    each (72 at four levels, 90 at five)."""
+    each (72 at four levels, 90 at five); and K4's, one for each of the
+    `gru` RMVPE calls."""
     n_rb = len(hp.model.resblock_kernel_sizes) if n_rb is None else n_rb
     stage = 6 * n_rb * len(hp.model.upsample_rates) * calls
     return {"banded_rel_attention": hp.model.n_layers * calls,
             "fused_stage": stage if n_rb > 1 else 0,
-            "fused_resblock": stage if n_rb == 1 else 0}
+            "fused_resblock": stage if n_rb == 1 else 0, "bigru": gru}
 
 
-def v2_48k_launches():
-    """The launches of one call of the v2/48k models of phases 3-W3."""
+def v2_48k_launches(gru=0):
+    """The launches of one call of the v2/48k models of phases 3-W3, with
+    `gru` RMVPE calls."""
     from tpu_rvc_torch.core.config import hparams_for
 
-    return want_launches(hparams_for("v2", 48000))
+    return want_launches(hparams_for("v2", 48000), gru=gru)
 
 
 def check_output(audio, n_expected, what):
@@ -878,16 +982,20 @@ def end_to_end(tmp, f0_method, phase, count=False):
     n_stage = len(hp.model.upsample_rates)
     n_launch = len(hp.model.resblock_kernel_sizes) * 6
     want = {"banded_rel_attention": hp.model.n_layers,
-            "fused_stage": n_stage * n_launch, "fused_resblock": 0}
+            "fused_stage": n_stage * n_launch, "fused_resblock": 0,
+            "bigru": int(f0_method == "rmvpe")}
     if counts != want:
         raise AssertionError(f"launches in one conversion {counts}, "
                              f"expected {want}")
     split = {k: float(np.median([s.get(k, 0.0) for s in stages]))
              for k in stages[-1]}
-    if count:   # R1: the 1598-frame window, the four 16 s decoder levels
+    if count:   # R1: the 1598-frame window, the four 16 s decoder levels,
+        # RMVPE over the 10 s and the x_pad padding
+        gru = (1, gru_steps(160000 + 2 * int(16000 * vc.x_pad)))
         count_path(f"offline_10s_{f0_method}", vc.pipeline.last_graph_flops,
                    float(np.median(walls)), torch.float32, counts,
-                   kernel_flops((2, 1598, 96), OFFLINE_STAGES))
+                   kernel_flops((2, 1598, 96), OFFLINE_STAGES,
+                                gru=gru if f0_method == "rmvpe" else None))
     say(phase, model="v2/48k random weights", f0_method=f0_method,
         input_s=10.0, index_rows=10000, load_s=load_s, wall_ms=walls,
         wall_ms_median=float(np.median(walls)), stage_ms=split,
@@ -924,7 +1032,7 @@ def single_resblock_path(tmp):
     check_output(audio, expected_len(48000, vc.x_pad, 480, 48000),
                  "single-resblock conversion")
     want = {"banded_rel_attention": hp.model.n_layers, "fused_stage": 0,
-            "fused_resblock": 6 * len(hp.model.upsample_rates)}
+            "fused_resblock": 6 * len(hp.model.upsample_rates), "bigru": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     say("single_resblock_path", model="v2/48k, one k=7 resblock per stage",
@@ -1174,7 +1282,7 @@ def streaming(tmp, n_warm=3, n_timed=10, n_profiled=4, f0method="rmvpe",
     index = random_index()
     n_all = n_warm + n_timed + n_profiled
     audio = voice(n_all * 0.25, seed=6, sr=48000)
-    want = v2_48k_launches()
+    want = v2_48k_launches(gru=int(f0method == "rmvpe"))
     for fused in paths:
         sess = StreamSession(stream_engine(model, tmp, "cuda", index),
                              f0method=f0method, fused=fused, **STREAM)
@@ -1212,10 +1320,12 @@ def streaming(tmp, n_warm=3, n_timed=10, n_profiled=4, f0method="rmvpe",
             busy, top = device_busy_ms(lambda: feed_blocks(
                 sess, audio, n_warm + n_timed, n_profiled))
         wall = float(np.median(walls))
-        if fused and count:   # R1: a 281-frame window, a 30-frame tail
+        if fused and count:   # R1: a 281-frame window, a 30-frame tail,
+            # RMVPE's 32 frames
             count_path("streaming_block_48k", sess._fused.last_graph_flops,
                        wall, torch.float32, want,
-                       kernel_flops((2, STREAM_T, 96), STREAM_STAGES))
+                       kernel_flops((2, STREAM_T, 96), STREAM_STAGES,
+                                    gru=(1, 32) if want["bigru"] else None))
         checks, draws, check_us, wrap_us, added_us = export_check_us(
             sess, audio, n_warm + n_timed + n_profiled - 1)
         say(phase, path="fused" if fused else "host",
@@ -1251,7 +1361,8 @@ def streaming_single_resblock(tmp, n_blocks=5):
         stream_engine(os.path.join(tmp, "v2_48k_rb1.pth"), tmp, "cuda"),
         f0method="pm", **STREAM)
     audio = voice(n_blocks * 0.25, seed=7, sr=48000)
-    want = {"banded_rel_attention": 6, "fused_stage": 0, "fused_resblock": 24}
+    want = {"banded_rel_attention": 6, "fused_stage": 0, "fused_resblock": 24,
+            "bigru": 0}
     walls = []
 
     def each(i, wall):
@@ -1361,7 +1472,7 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
                            random_index(hp.encoder_dim), version)
     n_all = n_warm + n_timed + n_profiled
     audios = client_voices(n_slots, n_all * 0.25, 20, samplerate)
-    want = want_launches(hp)
+    want = want_launches(hp, gru=int(use_f0 and f0method == "rmvpe"))
     streams, tick_counts = {}, {}
     for pipelined in modes:
         sched = SlotScheduler(engine, n_slots, f0method=f0method,
@@ -1433,11 +1544,14 @@ def serving(tmp, n_slots, n_warm, n_timed, n_profiled=4, f0method="rmvpe",
         split = ({k: float(np.median([sp.get(k, 0.0) for sp in spans]))
                   for k in spans[-1]} if spans else None)
         wall = float(np.median(walls))
-        if count and not pipelined:   # R1: K1 over 2N heads, K2 over N
+        if count and not pipelined:   # R1: K1 over 2N heads, K2 over N,
+            # K4 over N rows of RMVPE's 32 frames
             count_path(f"serving_tick_n{n_slots}",
                        sched.fused.last_graph_flops, wall, torch.float32,
                        want, kernel_flops((2 * n_slots, STREAM_T, 96),
-                                          STREAM_STAGES, N=n_slots))
+                                          STREAM_STAGES, N=n_slots,
+                                          gru=((n_slots, 32) if want["bigru"]
+                                               else None)))
         say(phase, mode="pipelined" if pipelined else "serial",
             slots=n_slots, model=f"{kind_name(*kind)} random weights",
             f0method=f0method if use_f0 else None, samplerate=samplerate,
@@ -1535,7 +1649,8 @@ def serving_single_resblock(tmp, n_slots=4, n_ticks=3):
         n_slots, f0method="pm", **STREAM)
     audios = client_voices(n_slots, n_ticks * 0.25, 40)
     slots = [sched.attach() for _ in range(n_slots)]
-    want = {"banded_rel_attention": 6, "fused_stage": 0, "fused_resblock": 24}
+    want = {"banded_rel_attention": 6, "fused_stage": 0, "fused_resblock": 24,
+            "bigru": 0}
     walls = []
 
     def each(i, wall):
@@ -1774,12 +1889,15 @@ def tcp_loopback(tmp, n_clients=2):
 TRAIN_FILES, TRAIN_SECONDS = 16, 4.0
 
 
-def no_launches(what):
+def no_launches(what, gru=0):
+    """Training launches no kernel; the f0 extraction that prepares it
+    launches K4 once for each of `gru` files it runs RMVPE on."""
     from tpu_rvc_torch.ops.kernels import launch_counts
 
-    if any(launch_counts.values()):
+    want = {**dict.fromkeys(launch_counts, 0), "bigru": gru}
+    if dict(launch_counts) != want:
         raise AssertionError(f"{what} launched kernels {dict(launch_counts)}"
-                             "; training runs no kernel")
+                             f", expected {want}; training runs no kernel")
 
 
 def train_prepare(tmp):
@@ -2352,7 +2470,7 @@ def trained_model_converts(tmp, model):
     counts = dict(launch_counts)
     check_output(audio, expected_len(160000, vc.x_pad, 480, 48000),
                  "trained model's conversion")
-    want = v2_48k_launches()
+    want = v2_48k_launches(gru=1)
     if counts != want:
         raise AssertionError(f"trained model launches {counts}, want {want}")
     x = load_audio(wav, 16000)
@@ -3364,9 +3482,11 @@ def long_file(tmp, index):
         walls, spans, counts, out = timed_runs(run, 1)
         check_output(out, n_out, f"chunk-parallel {method}")
         peak = torch.cuda.max_memory_allocated() / 1e9
-        if counts != want_launches(hp, calls):
+        # f0 runs once over the whole padded signal
+        want = want_launches(hp, calls, gru=int(method == "rmvpe"))
+        if counts != want:
             raise AssertionError(f"convert_long {method} launched {counts}, "
-                                 f"expected {want_launches(hp, calls)}")
+                                 f"expected {want}")
         busy, top = device_busy_ms(run)
         seq = lambda: vc.vc_single(0, wav, **kw)[1][1]  # noqa: E731
         seq_walls, seq_spans, seq_counts, seq_out = timed_runs(seq, 1)
@@ -4107,7 +4227,7 @@ def family_offline(tmp):
                 walls.append((time.perf_counter() - t1) * 1e3)
                 counts = dict(launch_counts)
                 check_output(audio, n_expected, f"{what} run {i}")
-            want = want_launches(hp)
+            want = want_launches(hp, gru=int(use_f0 and method == "rmvpe"))
             if sr_out != sr or counts != want or \
                     vc.pipeline.synth.enc_p.emb_phone.in_features != dim:
                 raise AssertionError(f"{what}: rate {sr_out}, launches "
@@ -4152,7 +4272,7 @@ def family_streaming(tmp, n_warm=3, n_timed=10, n_cpu=8):
         hp = hparams_for(version, sr)
         path = family_model(tmp, version, sr, True)
         geo = dict(STREAM, samplerate=sr)
-        want = want_launches(hp)
+        want = want_launches(hp, gru=int(method == "rmvpe"))
         audio = voice((n_warm + n_timed) * 0.25, seed=6, sr=sr)
         index = random_index(256 if version == "v1" else 768)
         sess = StreamSession(stream_engine(path, tmp, "cuda", index,
@@ -4311,7 +4431,9 @@ def family_train_kind(tmp, version, sr, use_f0, method, entry, n_warm=3,
                             "--save-every", "1", "--name", tag])
     train_s = time.perf_counter() - t0
     train_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    no_launches(f"{what}: preparing and training")
+    no_launches(f"{what}: preparing and training",
+                gru=(len(os.listdir(os.path.join(exp, "1_16k_wavs")))
+                     if use_f0 and method == "rmvpe" else 0))
     for f in [f"{tag}.pth", f"added_{tag}.tpuidx.npz"] + [
             f"{k}_{e}.{x}" for e in range(1, FAMILY_EPOCHS + 1)
             for k, x in (("state", "pt"), ("G", "pth"))]:
@@ -4354,7 +4476,7 @@ def family_train_kind(tmp, version, sr, use_f0, method, entry, n_warm=3,
     counts = dict(launch_counts)
     check_output(audio, expected_len(160000, vc.x_pad, hp.data.hop_length,
                                      sr), f"{what}: the trained model")
-    want = want_launches(hp)
+    want = want_launches(hp, gru=int(use_f0 and convert == "rmvpe"))
     if sr_out != sr or counts != want:
         raise AssertionError(f"{what}: trained model at {sr_out} Hz, "
                              f"launches {counts}, want {want}")
@@ -4510,7 +4632,7 @@ def main():
         against_cpu_floats = against_cpu(tmp, count=True)
         rmvpe_counts = end_to_end(tmp, "rmvpe", "end_to_end_rmvpe",
                                   count=True)
-        if rmvpe_counts != main_counts:
+        if rmvpe_counts != {**main_counts, "bigru": 1}:
             raise AssertionError(f"launches with rmvpe {rmvpe_counts}")
         stream_counts = streaming(tmp, count=True)
         stream_rb_counts = streaming_single_resblock(tmp)
@@ -4552,7 +4674,8 @@ def main():
     roofline_summary()
     for e in entries:
         rb = e["name"] == "fused_resblock"
-        e["launches"] = (rb_counts if rb else main_counts)[e["name"]]
+        e["launches"] = {"fused_resblock": rb_counts, "bigru": rmvpe_counts
+                         }.get(e["name"], main_counts)[e["name"]]
         e["stream_launches"] = (stream_rb_counts if rb
                                 else stream_counts)[e["name"]]
         e["batch_launches"] = (serve_rb_counts if rb
@@ -4565,7 +4688,7 @@ def main():
         e["host_f0_launches"] = host_f0_counts[e["name"]]
         e["merged_model_launches"] = tools_counts[e["name"]]
         e["uvr5_launches"] = sum(c[e["name"]] for c in uvr5_counts)
-        e.update(device_rows[e["name"]])
+        e.update(device_rows.get(e["name"], {}))
         e["web_launches"] = web_counts[e["name"]]
         e["gui_launches"] = gui_counts[e["name"]]
         e["family_launches"] = {k: c[e["name"]]

@@ -16,6 +16,16 @@ def attn_inputs(rng, BH, T, dk, lengths):
             np.asarray(lengths, np.int32))
 
 
+def gru_inputs(rng, B, T, device="cpu"):
+    """RMVPE's GRU (384 -> 2 x 256) at torch's initialisation from a seed,
+    and an input (B, T, 384) of unit scale."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(int(rng.integers(2 ** 31)))
+        gru = torch.nn.GRU(384, 256, batch_first=True, bidirectional=True)
+    x = torch.from_numpy(rng.standard_normal((B, T, 384)).astype(np.float32))
+    return gru.eval().to(device), x.to(device)
+
+
 def stage_inputs(rng, C, T, ks):
     x = rng.standard_normal((T, C)).astype(np.float32) * 0.3
     ws = [rng.standard_normal((k, C, C)).astype(np.float32) * 0.05

@@ -6,18 +6,21 @@ without JAX it runs without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_rvc_torch.core.device import fp32_math
 from tpu_rvc_torch.ops.kernels import (banded_rel_attention,
-                                       banded_rel_attention_plain,
-                                       fused_resblock, fused_stage,
-                                       launch_counts, reset_launch_counts,
-                                       stage_plain)
+                                       banded_rel_attention_plain, bigru,
+                                       bigru_plain, fused_resblock,
+                                       fused_stage, launch_counts,
+                                       reset_launch_counts, stage_plain)
 
-from _torch_inputs import W, attn_inputs, stage_inputs, stage_weights
+from _torch_inputs import (W, attn_inputs, gru_inputs, stage_inputs,
+                           stage_weights)
 
 
 @pytest.fixture
@@ -288,6 +291,147 @@ def test_rel_attention_kernel_sixteen_rows(rng, cuda, lengths):
     assert launch_counts["banded_rel_attention"] == 1
     torch.testing.assert_close(got, banded_rel_attention_plain(*args, W),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# RMVPE's BiGRU (csrc/bigru.cu): offline B = 1 up to a 56 s bucket, serving's
+# 32 rows of 32 frames, and 4 rows of a 79 s bucket
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 32), (1, 5600), (3, 1), (3, 32),
+                                 (3, 5600), (32, 1), (32, 32), (32, 5600),
+                                 (4, 7904)])
+def test_bigru_kernel_matches_plain_and_cudnn(rng, cuda, B, T):
+    """The kernel against the plain twin and against cuDNN's `nn.GRU`
+    (TF32 off), atol 2e-5 (outputs in (-1, 1)): fp32 FMA with the sums in
+    another order, over up to 7904 steps; one launch."""
+    gru, x = gru_inputs(rng, B, T, cuda)
+    with torch.no_grad():
+        reset_launch_counts()
+        got = bigru(x, gru)
+        assert launch_counts["bigru"] == 1
+        want = bigru_plain(x, gru)
+        cudnn = gru(x)[0]
+    assert got.shape == (B, T, 512)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got, cudnn, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(32, 32), (17, 100), (9, 3)])
+def test_bigru_rows_do_not_depend_on_the_split(rng, cuda, B, T):
+    """However many rows a cluster takes (8, 4 or 2 for these B on an
+    H100), the kernel gives each row the bits of that row launched alone,
+    from the same gates (the projection's product may sum in another
+    order at another row count)."""
+    from tpu_rvc_torch.ops.kernels.bigru import _kernel, _params, _projection
+
+    gru, x = gru_inputs(rng, B, T, cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    weights = [p.data_ptr() for p in _params(gru)[4:]]
+    with torch.no_grad():
+        gi = _projection(x, gru)
+        got = torch.empty(B, T, 512, device=cuda)
+        assert _kernel()(gi.data_ptr(), *weights, got.data_ptr(), B, T,
+                         stream) == 0
+        alone = torch.empty_like(got)
+        for b in range(B):
+            assert _kernel()(gi[b].data_ptr(), *weights, alone[b].data_ptr(),
+                             1, T, stream) == 0
+    assert torch.equal(got, alone)
+
+
+@pytest.mark.cuda
+def test_bigru_one_launch_per_e2e_call(cuda):
+    """RMVPE's E2E on the card launches the kernel once a call, for one
+    row and for a batch, and never cuDNN's RNN."""
+    from tpu_rvc_torch.models.rmvpe import E2E
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        on_cpu = E2E(n_blocks=1, n_gru=1, en_de_layers=2, inter_layers=1,
+                     en_out_channels=4).eval()
+    e2e = copy.deepcopy(on_cpu).to(cuda)
+    calls = []
+    real = torch._VF.gru
+    torch._VF.gru = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        with torch.no_grad():
+            for B in (1, 4):
+                mel = torch.randn(B, 128, 64)
+                reset_launch_counts()
+                out = e2e(mel.to(cuda))
+                assert launch_counts["bigru"] == 1
+                torch.testing.assert_close(out.cpu(), on_cpu(mel), rtol=0,
+                                           atol=1e-4)
+    finally:
+        torch._VF.gru = real
+    assert not calls
+
+
+@pytest.mark.cuda
+def test_bigru_launches_on_the_inputs_card_and_stream(rng, cuda):
+    """With the first card current, the kernel runs on the card its input
+    lies on (the last), and on that card's current stream: held behind a
+    sleep there, the launch waits for it, the default stream stays idle,
+    and the result is right once the side stream is done."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    gru, x = gru_inputs(rng, 2, 300, dev)
+    side = torch.cuda.Stream(dev)
+    with torch.no_grad():
+        bigru(x, gru)                        # the build, outside the test
+        want = bigru_plain(x, gru)
+        torch.cuda.synchronize(dev)
+        with torch.cuda.device(0):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(200_000_000)
+                got = bigru(x, gru)
+            assert torch.cuda.current_device() == 0
+        assert not side.query()
+        assert torch.cuda.default_stream(dev).query()
+        side.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_bigru_ignores_autocast(rng, cuda):
+    """Under bf16 autocast the wrapper gives the fp32 answer: its
+    projection's product stays fp32, the buffer the kernel reads."""
+    gru, x = gru_inputs(rng, 3, 40, cuda)
+    with torch.no_grad():
+        want = bigru(x, gru)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = bigru(x, gru)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bigru_rejects_what_the_kernel_does_not_take(rng, cuda):
+    gru, x = gru_inputs(rng, 2, 10, cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="float32"):
+            bigru(x.double(), gru)
+        with pytest.raises(ValueError, match="float32"):
+            bigru(x[..., :200], gru)
+        with pytest.raises(ValueError, match="float32"):
+            bigru(x[:, :0], gru)
+        with pytest.raises(ValueError, match="parameters must be"):
+            bigru(x, gru.double())
+        with pytest.raises(ValueError, match="parameters must be"):
+            bigru(x, gru.float().cpu())
+        narrow = torch.nn.GRU(384, 128, batch_first=True,
+                              bidirectional=True).to(cuda)
+        with pytest.raises(ValueError, match="hidden size 256"):
+            bigru(x, narrow)
+        one_way = torch.nn.GRU(384, 256, batch_first=True).to(cuda)
+        with pytest.raises(ValueError, match="bidirectional"):
+            bigru(x, one_way)
+        two_layers = torch.nn.GRU(384, 256, num_layers=2, batch_first=True,
+                                  bidirectional=True).to(cuda)
+        with pytest.raises(ValueError, match="one-layer"):
+            bigru(x, two_layers)
 
 
 def small_stream_engine(device, **kw):

@@ -10,6 +10,7 @@ from hypothesis import given, settings, strategies as st
 import jax
 import jax.numpy as jnp
 
+from tpu_rvc.models.rmvpe import _bigru_fused
 from tpu_rvc.nn.attention import MultiHeadRelAttention as JaxAttention
 from tpu_rvc.ops.pallas.rel_attention import (
     banded_rel_attention as jax_banded)
@@ -17,15 +18,18 @@ from tpu_rvc.ops.pallas.resblock import (fused_resblock as jax_resblock,
                                          fused_stage as jax_stage)
 from tpu_rvc_torch.nn.attention import MultiHeadRelAttention
 from tpu_rvc_torch.nn.modules import ResBlock1
-from tpu_rvc_torch.ops.kernels import (banded_rel_attention, fused_resblock,
-                                       fused_stage, launch_counts,
-                                       matmul_3xtf32, reset_launch_counts,
-                                       stage_plain, tf32_round, tf32_split)
+from tpu_rvc_torch.ops.kernels import (banded_rel_attention, bigru,
+                                       bigru_flops, bigru_plain, counting,
+                                       fused_resblock, fused_stage,
+                                       launch_counts, matmul_3xtf32,
+                                       reset_launch_counts, stage_plain,
+                                       tf32_round, tf32_split)
 from tpu_rvc_torch.ops.kernels import stage_weights as module_stage_weights
 from tpu_rvc_torch.ops.kernels.resblock import (pack_conv_weight,
                                                 unpack_conv_weight)
 
-from _torch_inputs import W, attn_inputs, stage_inputs, stage_weights
+from _torch_inputs import (W, attn_inputs, gru_inputs, stage_inputs,
+                           stage_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +137,11 @@ def test_cpu_tensors_never_launch(rng):
     fused_stage(t(x.T.copy()), stage_weights(ws, bs, (3, 7, 11)))
     x, ws, bs = stage_inputs(rng, 16, 80, (3,))
     fused_resblock(t(x.T.copy()), stage_weights(ws, bs, (3,)))
+    gru, xg = gru_inputs(rng, 1, 5)
+    with torch.no_grad():
+        bigru(xg, gru)
     assert launch_counts == {"banded_rel_attention": 0, "fused_stage": 0,
-                             "fused_resblock": 0}
+                             "fused_resblock": 0, "bigru": 0}
 
 
 def test_wrappers_reject_other_devices(rng):
@@ -146,6 +153,88 @@ def test_wrappers_reject_other_devices(rng):
     x, ws, bs = stage_inputs(rng, 8, 40, (3,))
     with pytest.raises(ValueError, match="unsupported device"):
         fused_resblock(meta(x.T), stage_weights(ws, bs, (3,)))
+    gru, xg = gru_inputs(rng, 1, 4)
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="unsupported device"):
+        bigru(meta(xg), gru)
+
+
+# ---------------------------------------------------------------------------
+# RMVPE's BiGRU: the plain twin of csrc/bigru.cu
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,T", [(1, 32), (1, 45), (3, 32), (3, 45)])
+def test_bigru_plain_matches_jax_fused_scan_and_nn_gru(rng, B, T):
+    """The plain twin against `_bigru_fused` (both directions in one
+    scan) and against `nn.GRU`, rtol/atol 1e-5: the same fp32 math, sums
+    in another order."""
+    gru, x = gru_inputs(rng, B, T)
+    with torch.no_grad():
+        got = bigru(x, gru)
+        want_torch = gru(x)[0]
+    assert torch.equal(got, bigru_plain(x, gru))
+    p = {k: v.detach().numpy() for k, v in gru.named_parameters()}
+    want_jax = _bigru_fused(
+        jnp.asarray(x.numpy()), p["weight_ih_l0"].T, p["bias_ih_l0"],
+        p["weight_hh_l0"].T, p["bias_hh_l0"], p["weight_ih_l0_reverse"].T,
+        p["bias_ih_l0_reverse"], p["weight_hh_l0_reverse"].T,
+        p["bias_hh_l0_reverse"])
+    assert got.shape == (B, T, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_jax),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want_torch.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T", [(1, 32), (1, 45), (3, 32), (3, 45)])
+def test_bigru_counts_cudnns_formula(rng, B, T):
+    """Inside `counting()` the wrapper adds what `utils/roofline.py`
+    counts for cuDNN's GRU (`_cudnn_rnn_flops`) and for `nn.GRU` on the
+    CPU, one launch, and returns zeros without launching: RMVPE's
+    `last_graph_flops()` is what it was with `nn.GRU`."""
+    from tpu_rvc_torch.models.rmvpe import BiGRU
+    from tpu_rvc_torch.utils.roofline import _cudnn_rnn_flops, graph_flops
+
+    gru, x = gru_inputs(rng, B, T)
+    weights = [tuple(p.shape) for p in gru._flat_weights]
+    want = _cudnn_rnn_flops((B, T, 384), weights, 4)
+    assert bigru_flops(B, T, 384) == want
+    module = BiGRU(384)
+    module.gru = gru
+    before = dict(launch_counts)
+    with torch.no_grad():
+        assert graph_flops(module, x) == graph_flops(gru, x) == want
+        with counting() as count:
+            out = bigru(x, gru)
+    assert count.flops["bigru"] == want and count.launches["bigru"] == 1
+    assert torch.equal(out, torch.zeros(B, T, 512))
+    assert launch_counts == before
+
+
+def test_bigru_refuses_grad(rng):
+    """No backward: with grad mode on, the wrapper raises when the input
+    or the GRU's parameters require grad, on the CPU too."""
+    gru, x = gru_inputs(rng, 1, 6)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bigru(x, gru)
+    gru.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bigru(x.requires_grad_(), gru)
+    assert bigru(x.detach(), gru).shape == (1, 6, 512)
+
+
+def test_bigru_projection_ignores_autocast(rng):
+    """The input projection stays in x's fp32 under autocast, which would
+    otherwise hand the kernel a bf16 buffer half the size it reads."""
+    from tpu_rvc_torch.ops.kernels.bigru import _projection
+
+    gru, x = gru_inputs(rng, 2, 7)
+    with torch.no_grad():
+        want = _projection(x, gru)
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            got = _projection(x, gru)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -88,7 +88,7 @@ def test_attention_formula_equals_flop_counter_over_the_twin(T):
         out = banded_rel_attention(*args)
     assert count.flops["banded_rel_attention"] == want
     assert count.launches == {"banded_rel_attention": 1, "fused_stage": 0,
-                              "fused_resblock": 0}
+                              "fused_resblock": 0, "bigru": 0}
     assert torch.equal(out, torch.zeros(2, T, 96))
     assert launch_counts == before
 

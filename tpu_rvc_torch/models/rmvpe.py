@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tpu_rvc_torch.ops.kernels import bigru
+
 N_MELS = 128
 N_CLASS = 360
 
@@ -138,7 +140,9 @@ class DeepUnet(nn.Module):
 
 class BiGRU(nn.Module):
     """1-layer bidirectional GRU (reference e2e.py:50); gate order r, z, n
-    is torch's own."""
+    is torch's own.  `self.gru` only holds the parameters (the `fc.0.gru.*`
+    keys); the forward is `ops/kernels/bigru.py`: the persistent kernel on
+    the card, its plain twin on the CPU, never cuDNN's RNN."""
 
     def __init__(self, in_features: int, hidden: int = 256):
         super().__init__()
@@ -146,7 +150,7 @@ class BiGRU(nn.Module):
                           bidirectional=True)
 
     def forward(self, x):
-        return self.gru(x)[0]
+        return bigru(x, self.gru)
 
 
 class E2E(nn.Module):

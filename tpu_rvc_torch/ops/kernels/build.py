@@ -3,7 +3,8 @@
 Each library is one `csrc/*.cu` file with a plain C interface, compiled
 into `build/kernels/<name>-<hash>.so` beside the package (the hash covers
 the source text and the flags, so an edit rebuilds); `resblock.cu` is
-built once per channel width (`-DRESBLOCK_C=...`).  All the libraries
+built once per channel width (`-DRESBLOCK_C=...`), and `bigru.cu` with
+no contraction but its own `fmaf`s (`-fmad=false`).  All the libraries
 compile at once, one nvcc process each.  Nothing is built when a
 module is imported: the first launch on a CUDA tensor calls `load()`.
 """
@@ -30,6 +31,7 @@ RESBLOCK_CHANNELS = (16, 32, 64, 128, 256)
 # library name -> (source file stem, extra nvcc flags)
 LIBS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "rel_attention": ("rel_attention", ()),
+    "bigru": ("bigru", ("-fmad=false",)),
     **{f"resblock_c{c}": ("resblock", (f"-DRESBLOCK_C={c}",))
        for c in RESBLOCK_CHANNELS}}
 

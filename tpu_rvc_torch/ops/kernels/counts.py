@@ -9,7 +9,7 @@ from typing import Dict, Iterator, Optional
 import torch
 
 launch_counts = {"banded_rel_attention": 0, "fused_stage": 0,
-                 "fused_resblock": 0}
+                 "fused_resblock": 0, "bigru": 0}
 
 
 def reset_launch_counts() -> None:

@@ -16,7 +16,8 @@ two things it cannot see:
     in its table (`aten.lstm` and `aten.gru` decompose before a dispatch
     mode sees them): 2 * 4H * (I + H) per step, layer and direction for
     an LSTM, 3H for a GRU, read off the weights' shapes, as XLA counts the
-    JAX nets' products.
+    JAX nets' products.  RMVPE's GRU is a kernel wrapper
+    (`ops/kernels/bigru.py`), whose `bigru_flops` is this GRU formula.
 """
 
 from __future__ import annotations
