@@ -15,11 +15,13 @@ suite's conftest:
 """
 
 import shutil
+import socket
 import threading
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from tpu_rvc_torch.audio.io import save_wav
@@ -322,10 +324,8 @@ def tiny_mute_hp():
             spk_embed_dim=4))
 
 
-def test_epoch_and_step_spans(timed, tmp_path):
-    """A `BucketBatcher` epoch's `load` and `collate` (each a request of
-    its own, outside any step), then a tiny `train_step`: `step` at the
-    root over `upload` and the step's device spans, on one id."""
+def mute_filelist(tmp_path):
+    """A one-row training set of the repository's `mute` fixtures."""
     files = []
     for sub, src, dst in (("0_gt_wavs", "mute48k.wav", "m.wav"),
                           ("3_feature256", "mute.npy", "m.npy"),
@@ -336,8 +336,16 @@ def test_epoch_and_step_spans(timed, tmp_path):
         files.append(str(tmp_path / sub / dst))
     filelist = tmp_path / "filelist.txt"
     filelist.write_text("|".join(files + ["0"]) + "\n")
+    return str(filelist)
+
+
+def test_epoch_and_step_spans(timed, tmp_path):
+    """A `BucketBatcher` epoch's `load` and `collate` (each a request of
+    its own, outside any step), then a tiny `train_step`: `step` at the
+    root over `upload` and the step's device spans, on one id."""
     hp = tiny_mute_hp()
-    batcher = data.BucketBatcher(data.RVCDataset(str(filelist), hp), 2)
+    batcher = data.BucketBatcher(
+        data.RVCDataset(mute_filelist(tmp_path), hp), 2)
     batch = next(batcher.epoch(0))
     before = timing.records()
     assert [r["name"] for r in before] == ["load", "collate"]
@@ -358,6 +366,63 @@ def test_epoch_and_step_spans(timed, tmp_path):
     assert by_name(recs)["upload"]["parent"] == step["span"]
     got = timing.read()
     assert got["step"] == got["host.step"] >= got["host.g_step"]
+
+
+def test_data_parallel_step_spans_its_all_reduces(tmp_path):
+    """A step in a one-rank gloo group: an `all_reduce` span inside
+    `d_step` and one inside `g_step`, each the averaging of that net's
+    gradients over the group; the rank's own losses, which one rank's
+    mean is, beside the group's."""
+    hp = tiny_mute_hp()
+    batch = next(data.BucketBatcher(
+        data.RVCDataset(mute_filelist(tmp_path), hp), 2).epoch(0))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        state = create_train_state(hp, seed=1, steps_per_epoch=1,
+                                   device="cpu", group=dist.group.WORLD)
+        timing.enable()
+        out = state.train_step(batch)
+        recs = timing.records()
+    finally:
+        timing.disable()
+        dist.destroy_process_group()
+    spans = {r["span"]: r for r in recs}
+    reduces = [r for r in recs if r["name"] == "all_reduce"]
+    assert [spans[r["parent"]]["name"] for r in reduces] == ["d_step",
+                                                             "g_step"]
+    assert all(r["device_ms"] is None and r["t1_ns"] > r["t0_ns"]
+               for r in reduces)
+    for k in ("loss_disc", "loss_gen_all"):
+        assert float(out["rank_" + k]) == float(out[k])
+
+
+def test_counters_add_up_once_enabled_and_cost_nothing_before():
+    """Disabled, `count` records nothing (one check of the module's
+    global); enabled, `read()` gives each counter's total under
+    `count.<name>` beside the spans' keys, and `enable()` starts them
+    again at nought."""
+    timing.disable()
+    timing.count("uvr5.windows", 7)
+    timing.enable()
+    try:
+        assert timing.read() == {}
+        timing.count("uvr5.windows", 3)
+        with timing.span("net"):
+            timing.count("uvr5.windows", 4)
+        timing.count("other")
+        got = timing.read()
+        assert got["count.uvr5.windows"] == 7 and got["count.other"] == 1
+        assert set(got) == {"count.uvr5.windows", "count.other", "net",
+                            "host.net"}
+        timing.enable()
+        assert timing.read() == {}
+    finally:
+        timing.disable()
+    assert timing.read() == {}
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ from tpu_rvc_torch.core.device import (cudnn_autotune, fp32_math,
                                        resolve_device)
 from tpu_rvc_torch.ops.resample import resample_poly
 from tpu_rvc_torch.ops.stft import istft, stft
-from tpu_rvc_torch.utils.timing import span
+from tpu_rvc_torch.utils.timing import count, span
 
 PARAMS_DIR = Path(__file__).parent.parent / "assets" / "uvr5_params"
 
@@ -380,6 +380,7 @@ class DeviceSeparator:
         win, off = sep.window_size, sep.model.offset
         xp = F.pad(x_pre, (pad_l, pad_r))
         wins = xp.unfold(2, win, roi)[:, :, :n_win].permute(2, 0, 1, 3)
+        count("uvr5.windows", n_win)
         outs = []
         for i in range(0, n_win, self.group):
             out = sep.model(wins[i:i + self.group].contiguous(),
@@ -512,19 +513,28 @@ class DeviceSeparator:
         true length n."""
         p = self.sep.mp.param
         sr = p["band"][len(p["band"])]["sr"]
-        mono = load_audio(music_file, sr)   # downmixed
-        T = mono.shape[0]
-        bucket = int(self.bucket_s * sr)
-        T4 = max(-(-T // bucket), 1) * bucket
-        wav = torch.zeros((2, T4), dtype=torch.float32)
-        wav[:, :T] = torch.from_numpy(mono)
-        self._last_len = T4
-        ins, voc = self._graph(wav.to(self.sep.device))
-        out_sr = p["sr"]
-        n_out = min(int(ins.shape[0]), int(T * out_sr / sr))
-        if not fetch:
-            return ins, voc, out_sr, n_out
-        return (ins[:n_out].cpu().numpy(), voc[:n_out].cpu().numpy(), out_sr)
+        with span("call", root=True):
+            with span("load"):
+                mono = load_audio(music_file, sr)   # downmixed
+            T = mono.shape[0]
+            bucket = int(self.bucket_s * sr)
+            T4 = max(-(-T // bucket), 1) * bucket
+            with span("upload"):
+                wav = torch.zeros((2, T4), dtype=torch.float32)
+                wav[:, :T] = torch.from_numpy(mono)
+                wav = wav.to(self.sep.device)
+            self._last_len = T4
+            ins, voc = self._graph(wav)
+            out_sr = p["sr"]
+            n_out = min(int(ins.shape[0]), int(T * out_sr / sr))
+            if not fetch:
+                return ins, voc, out_sr, n_out
+            if ins.is_cuda:
+                # wait for the card here, so that `fetch` times the copies
+                torch.cuda.current_stream(ins.device).synchronize()
+            with span("fetch"):
+                return (ins[:n_out].cpu().numpy(),
+                        voc[:n_out].cpu().numpy(), out_sr)
 
 
 def load_uvr5_model(model_path: str, param_name: str = "4band_v2.json",

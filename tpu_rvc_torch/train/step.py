@@ -33,7 +33,8 @@ batch's step, as the JAX step does over a mesh (`tpu_rvc/train/step.py:
     so each rank scales its masked sum by world / (the group's mask sum),
     and the averaged gradient is the global KL's;
   - the grad norms are taken after the reduction (across the shards under
-    FSDP), the returned losses are averaged over the group.
+    FSDP), the returned losses are averaged over the group, and
+    `rank_loss_disc` and `rank_loss_gen_all` are this rank's own.
 
 Precision: `hp.train.fp16_run` runs the forwards under
 `torch.autocast(bfloat16)`; losses, gradients and parameters stay fp32 and
@@ -186,7 +187,8 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.group is not None and not self.fsdp:
-            all_reduce_mean(params, self.group)
+            with span("all_reduce", self.device):
+                all_reduce_mean(params, self.group)
         norm = global_norm([p.grad for p in params], self.fsdp)
         for group in opt.param_groups:
             group["lr"] = self.lr()
@@ -292,11 +294,14 @@ class TrainState:
                   "loss_gen": loss_gen, "loss_fm": loss_fm,
                   "loss_mel": loss_mel, "loss_kl": loss_kl}
         if self.group is not None:
-            # the global batch's losses, without a host wait
+            # the global batch's losses, without a host wait, and this
+            # rank's own two, in which a fault in one rank's rows shows
             mean = torch.stack([losses[k].detach() for k in LOSS_TERMS])
             dist.all_reduce(mean, group=self.group)
             mean /= dist.get_world_size(self.group)
-            losses = dict(zip(LOSS_TERMS, mean.unbind()))
+            losses = {**dict(zip(LOSS_TERMS, mean.unbind())),
+                      "rank_loss_disc": loss_disc,
+                      "rank_loss_gen_all": loss_gen_all}
         return {k: v.detach() for k, v in {
             **losses, "grad_norm_g": grad_norm_g, "grad_norm_d": grad_norm_d,
             "mel_org": y_mel[0].float(),

@@ -21,10 +21,13 @@ Each enabled span also opens `torch.profiler.record_function(
 on the kernels' timeline (the mark's device copy is a user annotation,
 no work of the card's).
 
+`count(name, n)` adds `n` to a counter, at the same cost while disabled.
+
 `read()` sums milliseconds per name since `enable()`: under `<name>` on
 the device's clock for spans on a card and on the host's otherwise, and
-under `host.<name>` on the host's clock for every span.  `records()`
-returns the spans themselves, in the order they closed.
+under `host.<name>` on the host's clock for every span; and each
+counter's total under `count.<name>`.  `records()` returns the spans
+themselves, in the order they closed.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ import torch
 
 MARK = "tpu_rvc_torch."
 HOST = "host."
+COUNT = "count."
 
 _records: Optional[List["_Span"]] = None
+_counts: Dict[str, int] = {}
 _numbers = itertools.count(1)     # span numbers and request ids: next() on
 _requests = itertools.count(1)    # a count is atomic under the GIL
 
@@ -53,13 +58,13 @@ _stack = _Stack()
 
 
 def enable() -> None:
-    global _records
-    _records = []
+    global _records, _counts
+    _records, _counts = [], {}
 
 
 def disable() -> None:
-    global _records
-    _records = None
+    global _records, _counts
+    _records, _counts = None, {}
 
 
 class _Off:
@@ -133,11 +138,19 @@ def span(name: str, device=None, root: bool = False):
     return _Span(name, device, root)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` (nothing while disabled)."""
+    if _records is None:
+        return
+    _counts[name] = _counts.get(name, 0) + int(n)
+
+
 def read() -> Dict[str, float]:
     """Milliseconds per span name since `enable()`: `<name>` on the
     device's clock for spans on a card and on the host's otherwise,
-    `host.<name>` on the host's clock."""
-    out: Dict[str, float] = {}
+    `host.<name>` on the host's clock; each counter's total under
+    `count.<name>`."""
+    out: Dict[str, float] = {COUNT + k: v for k, v in _counts.items()}
     for s in list(_records or ()):
         host = s.host_ms()
         dev = s.device_ms()
